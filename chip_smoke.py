@@ -4,17 +4,23 @@ sweep (dcsexplorer_tpu_torch) end to end, through its hand-written kernels.
 
     python3 chip_smoke.py
 
-Phases (one line each; any failure raises and the exit code is non-zero):
+Phases (one line each or more; any failure raises and the exit code is
+non-zero):
   1. the card's name and power limit; build the CUDA kernels from csrc/
-     and the native host runtime
+     and the port's native host runtime (prescan, VM tracer)
   2. pack the flat94_music catalog (music_a/b.dcs94 x 144: 288 streams)
   3. each kernel against its plain PyTorch version on the card, at that
-     catalog's real intermediates, bit for bit; both timed with CUDA events
-  4. the whole sweep through FlatPipeline on the card: every kernel's launch
-     counter must move, PCM must equal the plain-version sweep; timed as
-     x realtime of decoded audio
+     catalog's real intermediates, bit for bit; both timed with CUDA events,
+     beside the kernel's bound (the larger of bytes over 3.35 TB/s and
+     integer operations over 33.5 TOP/s)
+  4. the whole sweep through FlatPipeline on the card: the launch counters
+     of the flat path's kernels (decode94_fb, transform94_planar) must move,
+     PCM must equal the plain-version sweep; timed as x realtime of decoded
+     audio, with the peak device memory of one sweep
   5. all six assets/streams/*.dcs94 through the port on the card against the
-     scalar reference decoder, bit for bit
+     port's scalar ReferenceDecoder, bit for bit
+  6. the sweep's stage spans with CUDA events (device time: the stages are
+     queued behind a device sleep): unpack, decode94_fb, transform, overlap
 Then one JSON line of per-kernel results, and last the {"ok": true, ...}
 line.  There is no CPU path: without a CUDA device the script exits 1.
 """
@@ -29,6 +35,9 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 STREAMS = os.path.join(HERE, "assets", "streams")
 COPIES = 144                   # x (music_a, music_b): bench.py's flat94_music
+HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
+INT32_OPS_PER_S = 33.5e12      # H100 SXM: 64 INT32 lanes/SM, 132 SMs, 1.98 GHz,
+                               # a multiply-add counted as two
 
 
 def _read(path):
@@ -53,12 +62,21 @@ def _max_abs_err(a, b):
     return int(((a.long() & 0xFFFF) - (b.long() & 0xFFFF)).abs().max())
 
 
+def _bound(n_bytes, n_ops):
+    """(bound ms, what bounds it): the least time for these bytes and
+    integer operations on the card."""
+    by = n_bytes / HBM_BYTES_PER_S * 1e3
+    op = n_ops / INT32_OPS_PER_S * 1e3
+    return (by, "bytes") if by >= op else (op, "operations")
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import numpy as np
+    from dcsexplorer_tpu_torch import native
     from dcsexplorer_tpu_torch.models import flatsweep as fs
     from dcsexplorer_tpu_torch.ops import band_decode as bd
     from dcsexplorer_tpu_torch.ops import kernels
@@ -74,15 +92,15 @@ def main():
     t0 = time.perf_counter()
     report = kernels.build()
     kernels.load()
-    used = [ln.strip() for ln in report.splitlines() if "Used" in ln]
+    used = [ln.strip() for ln in report.splitlines()
+            if "Used" in ln or "spill" in ln]
     print(f"phase 1 build: {time.perf_counter() - t0:.3f} s, "
           f"torch {torch.__version__} cuda {torch.version.cuda}; "
           + " | ".join(used))
-    # the host prescan and VM trace compile their native library on first
-    # use; do that here so that phase 2 times the pack alone
     t0 = time.perf_counter()
-    fs.FlatSweep([_read(os.path.join(STREAMS, "tone_low.dcs94"))])
-    print(f"phase 1 host runtime ready: {time.perf_counter() - t0:.3f} s")
+    native.get_lib()
+    print(f"phase 1 host runtime {native.LIB_PATH}: "
+          f"{time.perf_counter() - t0:.3f} s")
 
     # 2. the flat94_music catalog
     music = [_read(os.path.join(STREAMS, n))
@@ -104,20 +122,39 @@ def main():
     args = fs.packed_to_device(arrays, dev)
     torch.cuda.synchronize()
     upload_s = time.perf_counter() - t0
-    pipe = fs.FlatPipeline().to(dev)
+    pipe = fs.FlatPipeline(dev)
     tabs = dict(pipe.named_buffers())
-    header, fmt, sub, bt, btp, sstart = fs.unpack_columns(
+    n_steps = args["n_steps"]
+    cols = dict(pool_u8=args["pool_u8"], sid=args["sid"],
+                start_bit=args["start_bit"], bt_u8=args["bt_u8"],
+                mix=args["mix_u16"], hdr_tab=args["hdr_tab"],
+                fmt_tab=args["fmt_tab"], sub_tab=args["sub_tab"],
+                n_steps=n_steps, tabs=tabs)
+    vol = args["vol_u8"].int()
+    N, S = n_frames, len(arrays["fmt_tab"])
+
+    # the plain chain's intermediates, for the dequant_mix checks and for
+    # this run's symbol count
+    header, fmt, sub, bt, btp, _ = bd.unpack_columns(
         args["sid"], args["bt_u8"], args["hdr_tab"], args["fmt_tab"],
         args["sub_tab"])
-    ctl = fs.band_controls_dyn(header, fmt, sub, bt, btp, tabs)
-    packed, scale, total = bd.slot_controls(ctl, tabs)
-    mix = args["mix_u16"].int()
-    vol = args["vol_u8"].int()
-    n_steps = args["n_steps"]
+    packed, scale, total = bd.slot_controls(
+        bd.band_controls_dyn(header, fmt, sub, bt, btp, tabs), tabs)
+    vals = bd.decode94_symbols_plain(args["pool_u8"], args["start_bit"],
+                                     packed, n_steps, tabs["cb_flat"])
+    n_symbols = int((packed[:, :n_steps] != 0).sum())
+    del header, fmt, sub, bt, btp, packed
 
-    results = {}   # name -> (source, replaces, max_abs_err, ms, plain_ms)
+    results = {}   # name -> dict of the kernels line
+    where = {      # name -> (source in csrc/, the TPU code it replaces)
+        "decode94_fb": ("decode94_fb.cu",
+                        "dcsexplorer_tpu/models/flatsweep.py:87"),
+        "dequant_mix": ("dequant_mix.cu",
+                        "dcsexplorer_tpu/ops/pallas_kernels.py:83"),
+        "transform94_planar": ("transform94.cu",
+                               "dcsexplorer_tpu/ops/transform.py:255")}
 
-    def check(name, plain_fn, kern_fn, reps_plain, reps_kern):
+    def check(name, plain_fn, kern_fn, reps_plain, reps_kern, n_bytes, n_ops):
         want = plain_fn()
         got = kern_fn()
         torch.cuda.synchronize()
@@ -128,28 +165,39 @@ def main():
             raise AssertionError(f"{name}: kernel != plain (max abs err {err})")
         plain_ms = _time_ms(plain_fn, reps_plain, torch)
         ms = _time_ms(kern_fn, reps_kern, torch)
+        bound_ms, bound_by = _bound(n_bytes, n_ops)
         print(f"phase 3 {name}: bit-exact, kernel {ms:.4f} ms, "
-              f"plain {plain_ms:.4f} ms")
-        return want, err, ms, plain_ms
+              f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
+              f"({bound_by}; {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} G "
+              f"int ops) = {100 * bound_ms / ms:.1f}% of the bound")
+        results[name] = dict(
+            name=name, route="cuda",
+            source=f"dcsexplorer_tpu_torch/csrc/{where[name][0]}",
+            replaces=where[name][1], launches=0, max_abs_err=err, ms=ms,
+            plain_ms=plain_ms, bound_ms=bound_ms, bound_by=bound_by,
+            library_ms=None)
+        return want
 
-    pool, start_bit, cb_flat = args["pool_u8"], args["start_bit"], tabs["cb_flat"]
-    vals, err, ms, pms = check(
-        "decode94_symbols",
-        lambda: bd.decode94_symbols_plain(pool, start_bit, packed, n_steps,
-                                          cb_flat),
-        lambda: kernels.decode94_symbols(pool, start_bit, packed, n_steps,
-                                         cb_flat), 3, 10)
-    results["decode94_symbols"] = ("decode94.cu",
-                                   "dcsexplorer_tpu/models/flatsweep.py:102",
-                                   err, ms, pms)
+    # decode94_fb reads sid, start_bit, mix (4 B), 16 band-type bytes per
+    # frame, the pool and the per-stream tables once, and writes [N, 512];
+    # per decoded symbol ~6 integer operations (extract, look up, re-centre,
+    # scale, mix multiply-add, shift)
+    fb = check("decode94_fb", lambda: bd.decode94_fb_plain(**cols),
+               lambda: kernels.decode94_fb(**cols), 2, 20,
+               N * (4 + 4 + 16 + 4) + arrays["pool_u8"].size + S * 18
+               + N * 512 * 4, 6 * n_symbols)
+    # the same launch with no position to walk: the table copies and the
+    # stores of all-zero frame buffers, the floor under the walk
+    no_walk = dict(cols, n_steps=0)
+    print(f"phase 3 decode94_fb with n_steps 0 (no walk, stores only): "
+          f"{_time_ms(lambda: kernels.decode94_fb(**no_walk), 20, torch):.4f}"
+          f" ms")
 
-    fb, err, ms, pms = check(
-        "dequant_mix",
-        lambda: bd.dequant_mix_plain(vals, (scale, total), mix),
-        lambda: kernels.dequant_mix(vals, scale, total, mix), 3, 20)
-    results["dequant_mix"] = ("dequant_mix.cu",
-                              "dcsexplorer_tpu/ops/pallas_kernels.py:83",
-                              err, ms, pms)
+    mix = args["mix_u16"]
+    check("dequant_mix", lambda: bd.dequant_mix_plain(vals, (scale, total),
+                                                      mix),
+          lambda: kernels.dequant_mix(vals, scale, total, mix), 3, 20,
+          N * (256 * 4 * 2 + 4 + 4 + 512 * 4), 3 * N * 256)
     # the multi-voice form (prior frame buffers) on the same samples
     gen = torch.Generator(device=dev).manual_seed(0)
     prev = torch.randint(0, 1 << 16, (n_frames, 512), generator=gen,
@@ -160,17 +208,18 @@ def main():
     if err_prev != 0:
         raise AssertionError(f"dequant_mix with fb_prev: max abs err {err_prev}")
     print("phase 3 dequant_mix with random fb_prev: bit-exact")
+    del prev, vals, scale, total
 
-    (re, im), err, ms, pms = check(
-        "transform94_planar",
-        lambda: tf.transform94_planar_plain(fb, vol, tabs),
-        lambda: kernels.transform94_planar(fb, vol, tabs["p2_c0"],
-                                           tabs["p2_c1"], tabs["cos"],
-                                           tabs["sin"]), 3, 20)
-    results["transform94_planar"] = ("transform94.cu",
-                                     "dcsexplorer_tpu/ops/transform.py:255",
-                                     err, ms, pms)
-    del prev, vals, fb, re, im, packed, scale, total, ctl
+    # transform reads words 0..$101 of each frame buffer and the volume
+    # shift, writes two [N, 128] planes; ~5,800 integer operations a frame
+    # (three pre-passes and six radix-2 stages over 64 complex pairs)
+    check("transform94_planar",
+          lambda: tf.transform94_planar_plain(fb, vol, tabs),
+          lambda: kernels.transform94_planar(fb, vol, tabs["p2_c0"],
+                                             tabs["p2_c1"], tabs["cos"],
+                                             tabs["sin"]), 3, 20,
+          N * (258 * 4 + 4 + 2 * 128 * 4), 5800 * N)
+    del fb
 
     # 4. the whole sweep through the kernels
     for k in kernels.LAUNCHES:
@@ -178,25 +227,36 @@ def main():
     pcm = pipe(**args)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    if not all(launches[k] > 0 for k in results):
+    on_path = ("decode94_fb", "transform94_planar")
+    if not all(launches[k] > 0 for k in on_path):
         raise AssertionError(f"a kernel of the path did not launch: {launches}")
-    plain_pipe = fs.FlatPipeline(plain=True).to(dev)
+    for k, r in results.items():
+        r["launches"] = launches[k]
+    plain_pipe = fs.FlatPipeline(dev, plain=True)
     pcm_plain = plain_pipe(**args)
     err = _max_abs_err(pcm, pcm_plain)
     if err != 0 or pcm.shape != (n_frames, 240):
         raise AssertionError(f"sweep PCM != plain sweep (max abs err {err})")
     if not bool((pcm >= 0).all() & (pcm <= 0xFFFF).all()):
         raise AssertionError("sweep PCM outside u16 storage")
+    del pcm_plain
     sweep_ms = _time_ms(lambda: pipe(**args), 5, torch)
     plain_sweep_ms = _time_ms(lambda: plain_pipe(**args), 2, torch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    pipe(**args)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
     print(f"phase 4 sweep: launches {launches}, PCM bit-exact with the "
           f"plain sweep; device {sweep_ms:.3f} ms = "
           f"{audio_s / (sweep_ms / 1e3):.1f}x realtime "
           f"(plain {plain_sweep_ms:.3f} ms = "
           f"{audio_s / (plain_sweep_ms / 1e3):.1f}x); "
-          f"upload {upload_s * 1e3:.3f} ms; "
-          f"peak memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
-    del pcm, pcm_plain, args
+          f"upload {upload_s * 1e3:.3f} ms; peak memory of one sweep "
+          f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above "
+          f"the resident inputs)")
 
     # 5. every .dcs94 asset against the scalar reference decoder
     paths = sorted(glob.glob(os.path.join(STREAMS, "*.dcs94")))
@@ -218,15 +278,43 @@ def main():
     if pos != got.size:
         raise AssertionError(f"{got.size - pos} samples past the last stream")
     print(f"phase 5 reference: {len(paths)} streams, "
-          f"{sw6.n_frames_total} frames bit-exact with ReferenceDecoder "
-          f"({time.perf_counter() - t0:.3f} s scalar)")
+          f"{sw6.n_frames_total} frames bit-exact with the port's "
+          f"ReferenceDecoder ({time.perf_counter() - t0:.3f} s scalar)")
 
-    print(json.dumps({"kernels": [
-        {"name": k, "route": "cuda",
-         "source": f"dcsexplorer_tpu_torch/csrc/{src}", "replaces": repl,
-         "launches": launches[k], "max_abs_err": e, "ms": ms,
-         "plain_ms": pms}
-        for k, (src, repl, e, ms, pms) in results.items()]}))
+    # 6. stage spans of the sweep (FlatPipeline.forward's steps, in order).
+    # A 0.1 s device sleep first lets the host enqueue every stage before
+    # the card reaches them, so the spans hold device time only.
+    names = ("unpack", "decode94_fb", "transform", "overlap")
+    spans = {k: [] for k in names}
+    for rep in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        torch.cuda._sleep(int(0.1 * 1.98e9))
+        ev[0].record()
+        sstart = bd.stream_starts(args["sid"])
+        sb, mx, vs = (args["start_bit"].int(), args["mix_u16"].int(),
+                      args["vol_u8"].int())
+        ev[1].record()
+        fb = bd.decode94_fb(args["pool_u8"], args["sid"], sb, args["bt_u8"],
+                            mx, args["hdr_tab"], args["fmt_tab"],
+                            args["sub_tab"], n_steps, tabs)
+        ev[2].record()
+        re, im = tf.transform94_planar(fb, vs, tabs)
+        ev[3].record()
+        out = tf.overlap_resolve_planar(re, im, sstart, tabs)
+        ev[4].record()
+        torch.cuda.synchronize()
+        if rep:                                   # the first is a warm-up
+            for k, a, b in zip(names, ev, ev[1:]):
+                spans[k].append(a.elapsed_time(b))
+    if _max_abs_err(out, pcm) != 0:
+        raise AssertionError("stage-span run != sweep PCM")
+    mean = {k: sum(v) / len(v) for k, v in spans.items()}
+    print("phase 6 stage spans (ms, mean of 3): "
+          + ", ".join(f"{k} {v:.4f} (min {min(spans[k]):.4f}, "
+                      f"max {max(spans[k]):.4f})" for k, v in mean.items())
+          + f"; sum {sum(mean.values()):.4f}")
+
+    print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

@@ -1,12 +1,18 @@
 """dcsexplorer_tpu_torch — the DCS device decode path in PyTorch + CUDA.
 
 A second package beside ``dcsexplorer_tpu`` (the JAX reference).  It imports
-torch, numpy and the reference package's host-only modules (prescan, VM
-tracer, scalar decoder, format tables) and never jax.
+torch and numpy, never jax and nothing of the reference package: the host
+code it needs is its own copy, in the reference's layout.
 
-- ``ops``     — fixed-point numerics, symbol decode, dequant/mix, inverse
-                transform: plain PyTorch versions beside hand-written CUDA
-                kernels (``csrc/``, built with nvcc and bound with ctypes by
+- ``format``  — the codec's constant tables.
+- ``refdec``  — the scalar reference decoder, the ground truth of the checks.
+- ``native``  — the C++ host runtime (stream indexer, VM tracer), built with
+                g++ at first use and bound with ctypes; ``vm`` wraps the
+                tracer.
+- ``ops``     — the stream prescan; fixed-point numerics, band controls,
+                symbol decode, dequant/mix, inverse transform: plain
+                PyTorch versions beside hand-written CUDA kernels
+                (``csrc/``, built with nvcc and bound with ctypes by
                 ``ops/kernels.py``).
 - ``models``  — the flat 1994+ catalog sweep (host ``FlatSweep`` packing and
                 the ``FlatPipeline`` device module).

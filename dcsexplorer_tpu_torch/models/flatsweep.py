@@ -7,25 +7,28 @@ type/subtype are per-frame data, and the overlap carry resets at each
 stream's first frame.  The sweep runs
 
     host:   native prescan94 + native VM trace -> FlatSweep.pack()
-    device: band/slot controls -> symbol decode -> dequant/mix
+    device: decode94_fb (band controls, symbol decode, dequant/mix)
             -> inverse transform -> overlap resolve -> PCM
 
 with the device part as ``FlatPipeline`` (an ``nn.Module`` whose buffers are
-the codec's constant tables).  On CUDA tensors the symbol decode, dequant/mix
-and transform run as hand-written kernels (``ops/kernels.py``); on CPU
-tensors their plain PyTorch versions run.  Bit-exact with the JAX reference.
+the codec's constant tables).  On CUDA tensors the decode and the transform
+run as hand-written kernels (``ops/kernels.py``); on CPU tensors their plain
+PyTorch versions run.  The host part is the port's own native runtime
+(``native/``, ``ops/prescan.py``, ``vm/native_tracer.py``).  The entry
+points run on the card unless the caller names another device.  Bit-exact
+with the JAX reference.
 """
 
 import numpy as np
 import torch
 from torch import nn
 
-from dcsexplorer_tpu.format import tables as T
-from dcsexplorer_tpu.ops import prescan
-from dcsexplorer_tpu.refdec import decoder as rd
-
+from ..format import tables as T
 from ..ops import band_decode as bd
+from ..ops import prescan
 from ..ops import transform as tf
+from ..refdec import decoder as rd
+from ..vm import native_tracer as nt
 
 SAMPLE_RATE = 31250
 MIXING_LEVEL = 0x64
@@ -34,7 +37,7 @@ MASTER_VOLUME = 0x67
 
 def codec_tables():
     """The codec's constant tables as int32 CPU tensors, derived from
-    ``dcsexplorer_tpu.format.tables`` exactly as the reference derives them
+    ``format/tables.py`` exactly as the reference derives them
     (band_decode.py:33-78, transform.py:23-55, 240-252).  The system has no
     learned weights: these are FlatPipeline's buffers."""
     cb_sizes = [4, 8, 32, 128, 256, 512]
@@ -77,91 +80,35 @@ def codec_tables():
             for k, v in tabs.items()}
 
 
-def band_controls_dyn(header, fmt_type, sub_type, band_type, band_type_prev,
-                      tabs):
-    """Per-band controls with per-frame header [N, 16] and format
-    fmt_type/sub_type [N]; band_type/_prev [N, 16].  Returns a dict of
-    [N, 16] int64 tensors: code, scale_code, dense, out_inc, advance."""
-    dev = header.device
-    hdr = header.long()
-    band_type = band_type.long()
-    active = (hdr & 0x7F) != 0x7F
-    # the $7F terminator ends the band list
-    active = torch.cumprod(active.long(), dim=1).bool()
-
-    cur_hdr = hdr & 0x7F
-    out_inc = torch.where((cur_hdr & 0x40) != 0, 2, 1)
-    out_count = tabs["out_count"].long().reshape(1, 16).expand_as(hdr)
-    out_count = torch.where(out_inc == 2, out_count // 2, out_count)
-
-    # type-1 path: band types translate through per-band-group tables
-    btp = band_type_prev.long().clamp(0, 15)
-    preadj = tabs["preadj"].long()
-    pre = torch.where((sub_type != 0)[:, None], preadj[1][btp], preadj[0][btp])
-    band = torch.arange(16, device=dev).reshape(1, 16)
-    pre = torch.where(band < 3, pre, 0)
-    bt = band_type.clamp(0, 15)
-    code1 = tabs["xt_by_band"].long()[band, bt]
-    scale_code1 = cur_hdr + pre + tabs["xa_by_band"].long()[band, bt]
-
-    is1 = (fmt_type != 0)[:, None]
-    code = torch.where(is1, code1, band_type)
-    scale_code = torch.where(is1, scale_code1, cur_hdr)
-    code = torch.where(band_type == 0, 0, code)
-
-    has_data = active & (band_type != 0)
-    code = torch.where(has_data, code, 0)
-    dense = torch.where(has_data, out_count, 0)
-    # skipped bands advance by the halved count, decoded ones by count*inc
-    advance = torch.where(active & (band_type == 0), out_count,
-                          torch.where(has_data, out_count * out_inc, 0))
-    return {"code": code, "scale_code": scale_code, "dense": dense,
-            "out_inc": out_inc, "advance": advance}
-
-
-def decode_flat(pool_u8, start_bit, header, fmt_type, sub_type, band_type,
-                band_type_prev, n_steps, tabs, plain=False):
-    """Symbol-decode N frames against the global byte pool.
-
-    pool_u8 [L] uint8; start_bit [N] int32 global bit offsets;
-    header/band_type/_prev [N, 16]; fmt/sub [N].  ``plain`` runs the plain
-    PyTorch version on any device.  Returns (position-ordered values
-    [N, 256], (scale [N, 256], total [N])).
-    """
-    ctl = band_controls_dyn(header, fmt_type, sub_type, band_type,
-                            band_type_prev, tabs)
-    packed, scale, total = bd.slot_controls(ctl, tabs)
-    decode = bd.decode94_symbols_plain if plain else bd.decode94_symbols
-    vals = decode(pool_u8, start_bit, packed, n_steps, tabs["cb_flat"])
-    return vals, (scale, total)
+def _device(device):
+    """The device of an entry point.  Without a card, a CUDA device raises;
+    nothing falls back to the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device: pass device='cpu' to run on "
+                           "the CPU")
+    return dev
 
 
 def flat_pipeline(pool_u8, start_bit, header, fmt_type, sub_type, band_type,
-                  band_type_prev, mix, vol_shift, stream_start, n_steps, tabs,
-                  plain=False):
+                  band_type_prev, mix, vol_shift, stream_start, n_steps, tabs):
     """Full flat decode from the wide per-frame arrays (FlatSweep.args()):
-    symbols -> dequant -> transform -> overlap resolve.
+    the plain path that mirrors the JAX flat_pipeline, band and slot
+    controls -> symbols -> dequant -> transform -> overlap resolve.  The
+    wide columns have no kernel, so CUDA tensors raise: FlatPipeline runs
+    the compact columns through the kernels.
     Returns pcm [N, 240] int32 u16 storage."""
-    dense, ctl = decode_flat(pool_u8, start_bit, header, fmt_type, sub_type,
-                             band_type, band_type_prev, n_steps, tabs, plain)
-    dequant = bd.dequant_mix_plain if plain else bd.dequant_mix
-    transform = tf.transform94_planar_plain if plain else tf.transform94_planar
-    fb = dequant(dense, ctl, mix)
-    re, im = transform(fb, vol_shift, tabs)
+    if pool_u8.device.type != "cpu":
+        raise ValueError("the wide columns have no CUDA kernel: run "
+                         "FlatPipeline on compact_host_arrays()")
+    ctl = bd.band_controls_dyn(header, fmt_type, sub_type, band_type,
+                               band_type_prev, tabs)
+    packed, scale, total = bd.slot_controls(ctl, tabs)
+    vals = bd.decode94_symbols_plain(pool_u8, start_bit, packed, n_steps,
+                                     tabs["cb_flat"])
+    fb = bd.dequant_mix_plain(vals, (scale, total), mix)
+    re, im = tf.transform94_planar_plain(fb, vol_shift, tabs)
     return tf.overlap_resolve_planar(re, im, stream_start, tabs)
-
-
-def unpack_columns(sid, bt_u8, hdr_tab, fmt_tab, sub_tab):
-    """Per-frame columns from the compact wire: header [N, 16], fmt [N],
-    sub [N], band_type [N, 16], band_type_prev [N, 16] (the previous
-    frame's band types within a stream, zero at stream starts) and
-    stream_start [N] (where sid changes)."""
-    sid = sid.long()
-    bt = bt_u8.long()
-    sstart = sid != torch.cat([sid[:1] - 1, sid[:-1]])
-    btp = torch.where(sstart[:, None], 0, torch.cat([bt[:1], bt[:-1]], 0))
-    return (hdr_tab.long()[sid], fmt_tab.long()[sid], sub_tab.long()[sid],
-            bt, btp, sstart)
 
 
 def flat_pipeline_packed(pool_u8, sid, start_bit, bt_u8, mix_u16, vol_u8,
@@ -170,27 +117,29 @@ def flat_pipeline_packed(pool_u8, sid, start_bit, bt_u8, mix_u16, vol_u8,
     """The flat sweep from the transfer-compact columns
     (FlatSweep.compact_host_arrays via packed_to_device): the stream header
     travels once per stream (hdr_tab [S, 16] + sid [N]); band_type_prev and
-    stream starts derive from sid.  Returns pcm [N, 240] int32 u16
-    storage."""
-    header, fmt_type, sub_type, bt, btp, sstart = unpack_columns(
-        sid, bt_u8, hdr_tab, fmt_tab, sub_tab)
-    return flat_pipeline(pool_u8, start_bit.int(), header, fmt_type, sub_type,
-                         bt, btp, mix_u16.int(), vol_u8.int(), sstart, n_steps,
-                         tabs, plain)
+    stream starts derive from sid.  ``plain`` runs the plain versions of
+    the kernels on any device.  Returns pcm [N, 240] int32 u16 storage."""
+    decode = bd.decode94_fb_plain if plain else bd.decode94_fb
+    transform = tf.transform94_planar_plain if plain else tf.transform94_planar
+    fb = decode(pool_u8, sid, start_bit.int(), bt_u8, mix_u16.int(), hdr_tab,
+                fmt_tab, sub_tab, n_steps, tabs)
+    re, im = transform(fb, vol_u8.int(), tabs)
+    return tf.overlap_resolve_planar(re, im, bd.stream_starts(sid), tabs)
 
 
 class FlatPipeline(nn.Module):
     """The device half of the flat sweep; ``forward`` is
     flat_pipeline_packed over the tensors of packed_to_device.  The codec
-    tables are buffers, so ``.to(device)`` moves them with the module.
-    ``plain=True`` runs the plain PyTorch versions of the three kernels on
-    any device (the comparison path)."""
+    tables are buffers, made on ``device`` (the card unless given) and
+    moved by ``.to(device)``.  ``plain=True`` runs the plain PyTorch
+    versions of the kernels on any device (the comparison path)."""
 
-    def __init__(self, plain=False):
+    def __init__(self, device=None, plain=False):
         super().__init__()
         self.plain = plain
+        dev = _device("cuda" if device is None else device)
         for name, t in codec_tables().items():
-            self.register_buffer(name, t)
+            self.register_buffer(name, t.to(dev))
 
     def forward(self, pool_u8, sid, start_bit, bt_u8, mix_u16, vol_u8,
                 hdr_tab, fmt_tab, sub_tab, n_steps):
@@ -199,10 +148,12 @@ class FlatPipeline(nn.Module):
                                     dict(self.named_buffers()), self.plain)
 
 
-def packed_to_device(arrays, device):
+def packed_to_device(arrays, device="cuda"):
     """FlatSweep.compact_host_arrays() (numpy) -> FlatPipeline keyword
-    arguments on ``device``.  uint16 columns widen to int32 (torch has few
-    uint16 ops); uint8 columns stay uint8; n_steps stays an int."""
+    arguments on ``device`` (the card by default).  uint16 columns widen to
+    int32 (torch has few uint16 ops); uint8 columns stay uint8; n_steps
+    stays an int."""
+    device = _device(device)
     out = {}
     for k, v in arrays.items():
         if k == "n_steps":
@@ -280,30 +231,17 @@ class FlatSweep:
 
     @staticmethod
     def _trace(stream, n_frames, mixing_level, master_volume):
-        """Per-frame (mix multiplier, volume shift) for standalone
-        playback — native runtime VM when available, Python fallback."""
-        from dcsexplorer_tpu.vm import native_tracer as nt
-        if nt.available():
-            tr = nt.NativeControlTracer(stream, default_volume=master_volume,
-                                        standalone_os=rd.OS94)
+        """Per-frame (mix multiplier, volume shift) of channel 0 for
+        standalone playback, from the native runtime VM."""
+        tr = nt.NativeControlTracer(stream, default_volume=master_volume,
+                                    standalone_os=rd.OS94)
+        try:
             tr.soft_boot()
             tr.load_audio_stream(0, 0, mixing_level=mixing_level)
             _, _, out_m, out_v = tr.trace_frames(n_frames)
+        finally:
             tr.close()
-            return out_m[:, 0].astype(np.int32), out_v.astype(np.int32)
-        from dcsexplorer_tpu.vm.tracer import ControlTracer
-        tr = ControlTracer()
-        tr.default_volume = master_volume
-        tr.init_standalone(rd.OS94)
-        tr.soft_boot()
-        tr.load_audio_stream(0, stream, mixing_level=mixing_level)
-        tr.trace_frames(n_frames)
-        mixes = np.zeros(n_frames, dtype=np.int32)
-        for t, entries in enumerate(tr.trace_entries):
-            for (c, _, fidx, m) in entries:
-                if c == 0 and fidx == t:
-                    mixes[t] = m
-        return mixes, np.asarray(tr.trace_vol_shift, dtype=np.int32)
+        return out_m[:, 0].astype(np.int32), out_v.astype(np.int32)
 
     def pack(self):
         """Assemble the transfer-compact catalog columns."""
@@ -374,10 +312,9 @@ class FlatSweep:
             n_steps=self.n_steps)
 
 
-def run_flat(sweep, device):
-    """Decode the whole packed catalog on ``device`` through the wide
-    flat_pipeline; returns int16 PCM [N*240]."""
-    a = sweep.args()
-    tabs = {k: v.to(device) for k, v in codec_tables().items()}
-    t = [torch.tensor(np.asarray(x), device=device) for x in a[:10]]
-    return to_int16(flat_pipeline(*t, a[10], tabs))
+def run_flat(sweep, device="cuda"):
+    """Decode the whole packed catalog through FlatPipeline on ``device``
+    (the card by default); returns int16 PCM [N*240]."""
+    pipe = FlatPipeline(device)
+    return to_int16(pipe(**packed_to_device(sweep.compact_host_arrays(),
+                                            device)))

@@ -1,17 +1,27 @@
-"""1994+ frame decode: slot controls, symbol decode, dequant/mix.
+"""1994+ frame decode: band controls, slot controls, symbol decode,
+dequant/mix.
 
-PyTorch counterpart of ``dcsexplorer_tpu/ops/band_decode.py`` plus the
-symbol scan of ``dcsexplorer_tpu/models/flatsweep.py:decode_flat``.  Every
-frame is independent once the host prescan has found its bit offset and
-band types, so each stage runs over the frame axis:
+PyTorch counterpart of ``dcsexplorer_tpu/ops/band_decode.py`` plus
+``band_controls_dyn`` and the symbol scan ``decode_flat`` of
+``dcsexplorer_tpu/models/flatsweep.py``.  Every frame is independent once
+the host prescan has found its bit offset and band types, so each stage runs
+over the frame axis:
 
-- ``slot_controls`` expands per-band controls to one packed control word per
-  frame-buffer POSITION (plain PyTorch on every device);
-- ``decode94_symbols`` walks a per-frame bit cursor through the byte pool and
-  emits position-ordered sample values (CUDA kernel ``csrc/decode94.cu``);
+- ``unpack_columns`` widens the compact wire (per-stream headers, uint8 band
+  types) to per-frame columns; ``band_controls_dyn`` derives each frame's 16
+  band controls;
+- ``slot_controls`` expands them to one packed control word per frame-buffer
+  POSITION;
+- ``decode94_symbols_plain`` walks a per-frame bit cursor through the byte
+  pool and emits position-ordered sample values;
 - ``dequant_mix`` scales, mixes and accumulates those values into 512-word
   frame buffers (CUDA kernel ``csrc/dequant_mix.cu``, the port of the Pallas
   kernel ``dcsexplorer_tpu/ops/pallas_kernels.py:dequant_mix_pallas``).
+
+``decode94_fb`` is the flat sweep's whole decode, compact columns in, frame
+buffers out.  Its plain version chains the five stages above; its CUDA
+kernel ``csrc/decode94_fb.cu`` builds the band controls in registers and
+writes the frame buffers directly, so no per-position tensor exists.
 
 Each kernel has its plain PyTorch version here (``*_plain``).  The public
 function takes the plain version for CPU tensors and launches the kernel for
@@ -34,6 +44,67 @@ from .fixmath import M16, s16, sat16
 #   | (out_inc-1)<<27 | start_parity<<28
 _P_CODE, _P_MAXW, _P_CB, _P_VALID, _P_SCALE = 0, 5, 10, 20, 21
 _P_INC2, _P_PAR = 27, 28
+
+
+def unpack_columns(sid, bt_u8, hdr_tab, fmt_tab, sub_tab):
+    """Per-frame columns from the compact wire: header [N, 16], fmt [N],
+    sub [N], band_type [N, 16], band_type_prev [N, 16] (the previous
+    frame's band types within a stream, zero at stream starts) and
+    stream_start [N] (where sid changes)."""
+    sid = sid.long()
+    bt = bt_u8.long()
+    sstart = stream_starts(sid)
+    btp = torch.where(sstart[:, None], 0, torch.cat([bt[:1], bt[:-1]], 0))
+    return (hdr_tab.long()[sid], fmt_tab.long()[sid], sub_tab.long()[sid],
+            bt, btp, sstart)
+
+
+def stream_starts(sid):
+    """[N] bool: True where a frame's stream id differs from the frame
+    before it (and at frame 0)."""
+    return sid != torch.cat([sid[:1] - 1, sid[:-1]])
+
+
+def band_controls_dyn(header, fmt_type, sub_type, band_type, band_type_prev,
+                      tabs):
+    """Per-band controls with per-frame header [N, 16] and format
+    fmt_type/sub_type [N]; band_type/_prev [N, 16].  Returns a dict of
+    [N, 16] int64 tensors: code, scale_code, dense, out_inc, advance."""
+    dev = header.device
+    hdr = header.long()
+    band_type = band_type.long()
+    active = (hdr & 0x7F) != 0x7F
+    # the $7F terminator ends the band list
+    active = torch.cumprod(active.long(), dim=1).bool()
+
+    cur_hdr = hdr & 0x7F
+    out_inc = torch.where((cur_hdr & 0x40) != 0, 2, 1)
+    out_count = tabs["out_count"].long().reshape(1, 16).expand_as(hdr)
+    out_count = torch.where(out_inc == 2, out_count // 2, out_count)
+
+    # type-1 path: band types translate through per-band-group tables
+    btp = band_type_prev.long().clamp(0, 15)
+    preadj = tabs["preadj"].long()
+    pre = torch.where((sub_type != 0)[:, None], preadj[1][btp], preadj[0][btp])
+    band = torch.arange(16, device=dev).reshape(1, 16)
+    pre = torch.where(band < 3, pre, 0)
+    bt = band_type.clamp(0, 15)
+    code1 = tabs["xt_by_band"].long()[band, bt]
+    scale_code1 = cur_hdr + pre + tabs["xa_by_band"].long()[band, bt]
+
+    is1 = (fmt_type != 0)[:, None]
+    code = torch.where(is1, code1, band_type)
+    scale_code = torch.where(is1, scale_code1, cur_hdr)
+    code = torch.where(band_type == 0, 0, code)
+
+    has_data = active & (band_type != 0)
+    code = torch.where(has_data, code, 0)
+    dense = torch.where(has_data, out_count, 0)
+    # skipped bands advance by the halved count, decoded ones by count*inc
+    advance = torch.where(active & (band_type == 0), out_count,
+                          torch.where(has_data, out_count * out_inc, 0))
+    return {"code": code, "scale_code": scale_code, "dense": dense,
+            "out_inc": out_inc, "advance": advance}
 
 
 def _expand(starts, values, n_slots):
@@ -89,7 +160,7 @@ def slot_controls(ctl, tabs, n_slots=256):
 
 
 def decode94_symbols_plain(pool_u8, start_bit, packed, n_steps, cb_flat):
-    """Plain version of the symbol-decode kernel.
+    """Symbol decode: the walk that the decode94_fb kernel fuses.
 
     pool_u8 [L] uint8 byte pool (bytes past its end read as $FF, as the
     reference's padded windows do); start_bit [F] int32 global bit offsets;
@@ -141,16 +212,6 @@ def decode94_symbols_plain(pool_u8, start_bit, packed, n_steps, cb_flat):
     return out
 
 
-def decode94_symbols(pool_u8, start_bit, packed, n_steps, cb_flat):
-    """Symbol decode (see decode94_symbols_plain): plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors."""
-    if packed.device.type == "cpu":
-        return decode94_symbols_plain(pool_u8, start_bit, packed, n_steps,
-                                      cb_flat)
-    return kernels.decode94_symbols(pool_u8, start_bit, packed, n_steps,
-                                    cb_flat)
-
-
 def dequant_mix_plain(pos_vals, slot_ctl, mix, fb_prev=None):
     """Plain version of the dequant/mix kernel (single-voice form).
 
@@ -191,3 +252,35 @@ def dequant_mix(pos_vals, slot_ctl, mix, fb_prev=None):
         return dequant_mix_plain(pos_vals, slot_ctl, mix, fb_prev)
     scale, total = slot_ctl
     return kernels.dequant_mix(pos_vals, scale, total, mix, fb_prev)
+
+
+def decode94_fb_plain(pool_u8, sid, start_bit, bt_u8, mix, hdr_tab, fmt_tab,
+                      sub_tab, n_steps, tabs):
+    """Plain version of the decode94_fb kernel: the flat sweep's decode
+    from the compact columns to frame buffers.
+
+    pool_u8 [L] uint8; sid [N] stream ids (sorted runs); start_bit [N]
+    int32; bt_u8 [N, 16] uint8 band types; mix [N] int32 mixing
+    multipliers; hdr_tab [S, 16] uint8, fmt_tab/sub_tab [S] uint8 per
+    stream; n_steps covers the largest position count.  Returns frame
+    buffers [N, 512] int32 (u16 storage), as
+    unpack_columns -> band_controls_dyn -> slot_controls ->
+    decode94_symbols_plain -> dequant_mix_plain (no prior buffers)."""
+    header, fmt, sub, bt, btp, _ = unpack_columns(sid, bt_u8, hdr_tab,
+                                                  fmt_tab, sub_tab)
+    ctl = band_controls_dyn(header, fmt, sub, bt, btp, tabs)
+    packed, scale, total = slot_controls(ctl, tabs)
+    vals = decode94_symbols_plain(pool_u8, start_bit, packed, n_steps,
+                                  tabs["cb_flat"])
+    return dequant_mix_plain(vals, (scale, total), mix)
+
+
+def decode94_fb(pool_u8, sid, start_bit, bt_u8, mix, hdr_tab, fmt_tab,
+                sub_tab, n_steps, tabs):
+    """Compact columns -> frame buffers (see decode94_fb_plain): plain
+    version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    if pool_u8.device.type == "cpu":
+        return decode94_fb_plain(pool_u8, sid, start_bit, bt_u8, mix,
+                                 hdr_tab, fmt_tab, sub_tab, n_steps, tabs)
+    return kernels.decode94_fb(pool_u8, sid, start_bit, bt_u8, mix, hdr_tab,
+                               fmt_tab, sub_tab, n_steps, tabs)

@@ -25,22 +25,24 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO = os.path.dirname(_PKG)
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("decode94.cu", "dequant_mix.cu", "transform94.cu")
+SOURCES = ("decode94_fb.cu", "dequant_mix.cu", "transform94.cu")
 HEADERS = ("dcs_fixmath.cuh",)
 LIB_PATH = os.path.join(_REPO, "build", "torch_kernels", "libdcs_torch.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches per kernel; each wrapper adds one where it launches its kernel
-LAUNCHES = {"decode94_symbols": 0, "dequant_mix": 0, "transform94_planar": 0}
+LAUNCHES = {"decode94_fb": 0, "dequant_mix": 0, "transform94_planar": 0}
 
 _lib = None
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _SIGNATURES = {
-    # pool, pool_len, start_bit, packed, cb_flat, cb_len, out,
-    # n_frames, n_steps, stream
-    "dcs_decode94_symbols": [_P, _LL, _P, _P, _P, _I, _P, _I, _I, _P],
+    # pool, pool_len, sid, start_bit, bt_u8, mix, hdr_tab, fmt_tab,
+    # sub_tab, n_streams, tables (_FB_TABLES order), out, n_frames,
+    # n_steps, stream
+    "dcs_decode94_fb": [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _I,
+                        *[_P] * 8, _P, _I, _I, _P],
     # pos_vals, scale, total, mix, fb_prev (nullable), out,
     # n_frames, n_slots, stream
     "dcs_dequant_mix": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
@@ -112,23 +114,44 @@ def _launch(kernel, c_name, device, *args):
     LAUNCHES[kernel] += 1
 
 
-def decode94_symbols(pool_u8, start_bit, packed, n_steps, cb_flat):
-    """Symbol decode on the card (csrc/decode94.cu); see
-    band_decode.decode94_symbols_plain for the contract."""
-    F = start_bit.shape[0]
-    dev = packed.device
-    _check("packed", packed, torch.int32, (F, 256))
-    _check("pool_u8", pool_u8, torch.uint8, (pool_u8.numel(),), dev)
-    _check("start_bit", start_bit, torch.int32, (F,), dev)
-    _check("cb_flat", cb_flat, torch.int32, (cb_flat.numel(),), dev)
-    if n_steps < 0 or cb_flat.numel() == 0:
-        raise ValueError(f"n_steps {n_steps}, codebook size {cb_flat.numel()}")
-    out = torch.empty((F, 256), dtype=torch.int32, device=dev)
-    if F:
-        _launch("decode94_symbols", "dcs_decode94_symbols", dev,
-                pool_u8.data_ptr(), pool_u8.numel(), start_bit.data_ptr(),
-                packed.data_ptr(), cb_flat.data_ptr(), cb_flat.numel(),
-                out.data_ptr(), F, min(n_steps, 256))
+# the codec tables decode94_fb reads, in the order of its C arguments
+_FB_TABLES = (("out_count", (16,)), ("xt_by_band", (16, 16)),
+              ("xa_by_band", (16, 16)), ("preadj", (2, 16)), ("maxw", (7,)),
+              ("cb_base", (7,)), ("scale_mant", (4,)), ("cb_flat", (940,)))
+
+
+def decode94_fb(pool_u8, sid, start_bit, bt_u8, mix, hdr_tab, fmt_tab,
+                sub_tab, n_steps, tabs):
+    """Compact columns -> frame buffers on the card (csrc/decode94_fb.cu);
+    see band_decode.decode94_fb_plain for the contract."""
+    N = sid.shape[0]
+    S = hdr_tab.shape[0]
+    dev = pool_u8.device
+    _check("pool_u8", pool_u8, torch.uint8, (pool_u8.numel(),))
+    _check("sid", sid, torch.int32, (N,), dev)
+    _check("start_bit", start_bit, torch.int32, (N,), dev)
+    _check("bt_u8", bt_u8, torch.uint8, (N, 16), dev)
+    _check("mix", mix, torch.int32, (N,), dev)
+    _check("hdr_tab", hdr_tab, torch.uint8, (S, 16), dev)
+    _check("fmt_tab", fmt_tab, torch.uint8, (S,), dev)
+    _check("sub_tab", sub_tab, torch.uint8, (S,), dev)
+    for name, shape in _FB_TABLES:
+        _check(name, tabs[name], torch.int32, shape, dev)
+    # the kernel loads 4-byte pool words and 16-byte header/band-type rows
+    for name, t, align in (("pool_u8", pool_u8, 4), ("bt_u8", bt_u8, 16),
+                           ("hdr_tab", hdr_tab, 16)):
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: not {align}-byte aligned")
+    if n_steps < 0:
+        raise ValueError(f"n_steps {n_steps}")
+    out = torch.empty((N, 512), dtype=torch.int32, device=dev)
+    if N:
+        _launch("decode94_fb", "dcs_decode94_fb", dev,
+                pool_u8.data_ptr(), pool_u8.numel(), sid.data_ptr(),
+                start_bit.data_ptr(), bt_u8.data_ptr(), mix.data_ptr(),
+                hdr_tab.data_ptr(), fmt_tab.data_ptr(), sub_tab.data_ptr(), S,
+                *[tabs[name].data_ptr() for name, _ in _FB_TABLES],
+                out.data_ptr(), N, min(n_steps, 256))
     return out
 
 

@@ -1,12 +1,15 @@
 """Port parity for the whole flat 1994+ sweep: the port's FlatSweep packs
 the same wire columns as the JAX one, and FlatPipeline on the CPU (the
-plain versions of the three kernels) equals jax.jit(flat_pipeline_packed)
-bit for bit over the six .dcs94 assets.  Also: no kernel launches on the
-CPU, the port never imports jax, and chip_smoke.py refuses to run without
-a CUDA device."""
+plain versions of the kernels) equals jax.jit(flat_pipeline_packed) bit for
+bit over the six .dcs94 assets.  Also: no kernel launches on the CPU, the
+port never imports jax or the JAX package (at run time and in its sources),
+its entry points default to the card and raise without one, and
+chip_smoke.py refuses to run without a CUDA device."""
 
 import glob
+import inspect
 import os
+import re
 import subprocess
 import sys
 
@@ -71,7 +74,7 @@ def test_wide_args_match_jax(sweeps):
 def test_slice_on_cpu_matches_jax(sweeps, jax_pcm):
     before = dict(kernels.LAUNCHES)
     args = tfs.packed_to_device(sweeps[1].compact_host_arrays(), "cpu")
-    pcm = tfs.FlatPipeline()(**args)
+    pcm = tfs.FlatPipeline("cpu")(**args)
     assert pcm.shape == jax_pcm.shape == (sweeps[1].n_frames_total, 240)
     assert pcm.dtype == torch.int32
     assert np.array_equal(jax_pcm & 0xFFFF, pcm.numpy())
@@ -86,9 +89,20 @@ def test_wide_run_flat_matches_jax(sweeps, jax_pcm):
     assert np.array_equal(want.reshape(-1), got)
 
 
+def test_wide_flat_pipeline_matches_jax(sweeps, jax_pcm):
+    # the wide columns run the plain path, and only on the CPU
+    a = sweeps[1].args()
+    t = [torch.tensor(np.asarray(x)) for x in a[:10]]
+    tabs = tfs.codec_tables()
+    pcm = tfs.flat_pipeline(*t, a[10], tabs)
+    assert np.array_equal(jax_pcm & 0xFFFF, pcm.numpy())
+    with pytest.raises(ValueError, match="no CUDA kernel"):
+        tfs.flat_pipeline(t[0].to("meta"), *t[1:], a[10], tabs)
+
+
 def test_plain_pipeline_flag_matches_default(sweeps, jax_pcm):
     args = tfs.packed_to_device(sweeps[1].compact_host_arrays(), "cpu")
-    pcm = tfs.FlatPipeline(plain=True)(**args)
+    pcm = tfs.FlatPipeline("cpu", plain=True)(**args)
     assert np.array_equal(jax_pcm & 0xFFFF, pcm.numpy())
 
 
@@ -105,7 +119,7 @@ def test_smallest_stream_matches_reference_decoder(sweeps):
 
 
 def test_flat_pipeline_module_carries_codec_tables():
-    pipe = tfs.FlatPipeline()
+    pipe = tfs.FlatPipeline(device="cpu")
     bufs = dict(pipe.named_buffers())
     assert bufs["cb_flat"].shape == (940,)
     assert all(b.dtype == torch.int32 for b in bufs.values())
@@ -122,21 +136,74 @@ for n in names:
 import chip_smoke
 from dcsexplorer_tpu_torch.models import flatsweep as fs
 sw = fs.FlatSweep([open(sys.argv[1], "rb").read()]).pack()
-pcm = fs.FlatPipeline()(**fs.packed_to_device(sw.compact_host_arrays(), "cpu"))
+pcm = fs.FlatPipeline("cpu")(**fs.packed_to_device(sw.compact_host_arrays(),
+                                                   "cpu"))
 assert pcm.shape == (sw.n_frames_total, 240)
-bad = sorted(m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib"))
+assert fs.reference_pcm(open(sys.argv[1], "rb").read(), 2).shape == (480,)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "dcsexplorer_tpu"))
 assert not bad, bad
 print(len(names))
 """
 
 
 def test_port_never_imports_jax():
-    # a fresh interpreter: this test process has jax loaded (conftest)
+    # a fresh interpreter: this test process has jax and the JAX package
+    # loaded.  After the port, chip_smoke and a CPU sweep, neither jax nor
+    # any module of dcsexplorer_tpu may be loaded.
     paths, _ = _streams()
     r = subprocess.run([sys.executable, "-c", _NO_JAX, paths[0]], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 7       # every port module imported
+    assert int(r.stdout.split()[-1]) >= 14      # every port module imported
+
+
+# the JAX package named as a module: "dcsexplorer_tpu." or an import of it,
+# but not "dcsexplorer_tpu_torch" and not a path ("dcsexplorer_tpu/...")
+_NAMES_JAX_PACKAGE = re.compile(
+    r"\bdcsexplorer_tpu\.|\bfrom\s+dcsexplorer_tpu\s+import\b"
+    r"|\bimport\s+dcsexplorer_tpu\b(?!_)")
+
+
+def test_port_sources_never_name_the_jax_package():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(os.path.join(REPO, "dcsexplorer_tpu_torch")):
+        files += [os.path.join(root, n) for n in names
+                  if n.endswith((".py", ".cu", ".cuh", ".cpp", ".h"))]
+    assert len(files) >= 20
+    hits = []
+    for path in files:
+        with open(path, encoding="utf-8") as f:
+            for k, line in enumerate(f, 1):
+                if _NAMES_JAX_PACKAGE.search(line):
+                    hits.append(f"{os.path.relpath(path, REPO)}:{k}: {line}")
+    assert not hits, "".join(hits)
+    # the pattern itself catches what it must
+    for bad in ("from dcsexplorer_tpu.ops import prescan",
+                "from dcsexplorer_tpu import native", "import dcsexplorer_tpu",
+                "dcsexplorer_tpu.format.tables"):
+        assert _NAMES_JAX_PACKAGE.search(bad), bad
+    for fine in ("from dcsexplorer_tpu_torch.ops import kernels",
+                 "import dcsexplorer_tpu_torch", "dcsexplorer_tpu/ops/x.py"):
+        assert not _NAMES_JAX_PACKAGE.search(fine), fine
+
+
+def test_entry_points_default_to_the_card(sweeps):
+    # the defaults name the card; here, where there is none, they raise
+    # instead of falling back to the CPU
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    assert inspect.signature(tfs.packed_to_device).parameters[
+        "device"].default == "cuda"
+    assert inspect.signature(tfs.run_flat).parameters[
+        "device"].default == "cuda"
+    assert inspect.signature(tfs.FlatPipeline).parameters[
+        "device"].default is None
+    arrays = sweeps[1].compact_host_arrays()
+    for call in (tfs.FlatPipeline, lambda: tfs.packed_to_device(arrays),
+                 lambda: tfs.run_flat(sweeps[1])):
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            call()
 
 
 def test_chip_smoke_refuses_without_cuda(tmp_path):

@@ -6,10 +6,13 @@ with a GPU (no jax needed there):
     DCS_TEST_PLATFORM=gpu python -m pytest tests/test_torch_kernels_gpu.py -q
 
 They cover inputs that real catalogs rarely or never produce: random
-control words from random headers (decimated bands, raw fields of up to 17
-bits), bit cursors running past the end of the byte pool, random prior
-frame buffers, saturating frame buffers and volume shifts past 31.  Every
-comparison is bit for bit.  chip_smoke.py covers the real catalog.
+headers and band types over the whole uint8 range (decimated bands, $7F
+terminators, raw fields, codes whose high bits alias into the width field),
+streams that cross block boundaries so a frame's previous band types sit in
+another block, bit cursors running past the end of a pool whose length is
+not a multiple of 4, random prior frame buffers, saturating frame buffers
+and volume shifts past 31.  Every comparison is bit for bit.
+chip_smoke.py covers the real catalog.
 """
 
 import glob
@@ -42,52 +45,68 @@ def tabs(dev):
     return {k: v.to(dev) for k, v in fs.codec_tables().items()}
 
 
-def _random_controls(n, seed, tabs):
+def _random_catalog(n, seed, dev, pool_len=20_001, bt_max=256):
+    """Random compact columns: sorted stream ids in runs of 1 to ~300
+    frames (so streams cross the kernel's 128-frame blocks), random
+    headers of both format types and every subtype, random band types, and
+    the last frames starting near the end of the pool."""
     rng = np.random.default_rng(seed)
-    hdr = rng.integers(0, 0x80, size=(n, 16))
-    hdr[rng.random((n, 16)) < 0.05] = 0x7F
-    hdr[rng.random((n, 16)) < 0.3] |= 0x40
-    cols = [hdr, rng.integers(0, 2, size=n), rng.integers(0, 4, size=n),
-            rng.integers(0, 20, size=(n, 16)),
-            rng.integers(0, 20, size=(n, 16))]
-    dev = tabs["cb_flat"].device
-    ctl = fs.band_controls_dyn(*[torch.tensor(c, device=dev) for c in cols],
-                               tabs)
-    return bd.slot_controls(ctl, tabs)
+    runs = rng.integers(1, 300, size=n)
+    sid = np.repeat(np.arange(n), runs)[:n]
+    S = int(sid[-1]) + 1
+    hdr = rng.integers(0, 0x100, size=(S, 16))
+    hdr[rng.random((S, 16)) < 0.05] = 0x7F
+    hdr[0, 0] = 0x7F
+    bt = rng.integers(0, bt_max, size=(n, 16))
+    bt[rng.random((n, 16)) < 0.2] = 0
+    start = rng.integers(0, pool_len * 8, size=n)
+    start[-64:] = pool_len * 8 - rng.integers(0, 200, size=64)
+    cols = dict(pool_u8=rng.integers(0, 256, size=pool_len, dtype=np.uint8),
+                sid=sid.astype(np.int32), start_bit=start.astype(np.int32),
+                bt_u8=bt.astype(np.uint8),
+                mix=rng.integers(0, 1 << 16, size=n).astype(np.int32),
+                hdr_tab=hdr.astype(np.uint8),
+                fmt_tab=(hdr[:, 0] >> 7).astype(np.uint8),
+                sub_tab=(((hdr[:, 1] >> 6) & 2) | (hdr[:, 2] >> 7))
+                .astype(np.uint8))
+    return {k: torch.tensor(v, device=dev) for k, v in cols.items()}
 
 
 @pytest.mark.parametrize("n_steps", [256, 192, 40, 0])
-def test_decode94_kernel_on_random_streams(dev, tabs, n_steps):
-    n = 4096
-    packed, _, _ = _random_controls(n, n_steps, tabs)
-    rng = np.random.default_rng(1)
-    pool = torch.tensor(rng.integers(0, 256, size=20_000, dtype=np.uint8),
-                        device=dev)
-    # the last frames start near the pool's end and read past it ($FF)
-    start = rng.integers(0, pool.numel() * 8, size=n).astype(np.int32)
-    start[-64:] = pool.numel() * 8 - rng.integers(0, 200, size=64)
-    start_bit = torch.tensor(start, device=dev)
-    want = bd.decode94_symbols_plain(pool, start_bit, packed, n_steps,
-                                     tabs["cb_flat"])
-    got = kernels.decode94_symbols(pool, start_bit, packed, n_steps,
-                                   tabs["cb_flat"])
+def test_decode94_fb_kernel_on_random_streams(dev, tabs, n_steps):
+    cols = _random_catalog(4099, n_steps, dev)
+    sid = cols["sid"].cpu().numpy()
+    # some streams continue across a block boundary
+    edge = np.arange(128, sid.size, 128)
+    assert (sid[edge - 1] == sid[edge]).any()
+    want = bd.decode94_fb_plain(**cols, n_steps=n_steps, tabs=tabs)
+    got = kernels.decode94_fb(**cols, n_steps=n_steps, tabs=tabs)
     torch.cuda.synchronize()
     assert torch.equal(want, got)
 
 
-def test_decode94_kernel_on_the_assets(dev, tabs):
+def test_decode94_fb_kernel_on_a_pool_ending_mid_window(dev, tabs):
+    # 4k + 3 pool bytes: the last refills cross the pool's end
+    cols = _random_catalog(1024, 5, dev, pool_len=403, bt_max=20)
+    cols["start_bit"] = torch.clamp(cols["start_bit"], min=403 * 8 - 300)
+    want = bd.decode94_fb_plain(**cols, n_steps=256, tabs=tabs)
+    got = kernels.decode94_fb(**cols, n_steps=256, tabs=tabs)
+    torch.cuda.synchronize()
+    assert torch.equal(want, got)
+
+
+def test_decode94_fb_kernel_on_the_assets(dev, tabs):
     streams = [open(p, "rb").read()
                for p in sorted(glob.glob(os.path.join(ASSETS, "*.dcs94")))]
     args = fs.packed_to_device(fs.FlatSweep(streams).pack()
                                .compact_host_arrays(), dev)
-    cols = fs.unpack_columns(args["sid"], args["bt_u8"], args["hdr_tab"],
-                             args["fmt_tab"], args["sub_tab"])
-    packed, _, _ = bd.slot_controls(fs.band_controls_dyn(*cols[:5], tabs),
-                                    tabs)
-    want = bd.decode94_symbols_plain(args["pool_u8"], args["start_bit"],
-                                     packed, args["n_steps"], tabs["cb_flat"])
-    got = kernels.decode94_symbols(args["pool_u8"], args["start_bit"], packed,
-                                   args["n_steps"], tabs["cb_flat"])
+    cols = dict(pool_u8=args["pool_u8"], sid=args["sid"],
+                start_bit=args["start_bit"], bt_u8=args["bt_u8"],
+                mix=args["mix_u16"], hdr_tab=args["hdr_tab"],
+                fmt_tab=args["fmt_tab"], sub_tab=args["sub_tab"],
+                n_steps=args["n_steps"], tabs=tabs)
+    want = bd.decode94_fb_plain(**cols)
+    got = kernels.decode94_fb(**cols)
     torch.cuda.synchronize()
     assert torch.equal(want, got)
 
@@ -141,6 +160,10 @@ def test_wrappers_refuse_bad_tensors(dev, tabs):
     with pytest.raises(ValueError, match="CUDA"):
         kernels.transform94_planar(fb, vs.cpu(), tabs["p2_c0"], tabs["p2_c1"],
                                    tabs["cos"], tabs["sin"])
+    cols = _random_catalog(64, 0, dev)
+    cols["pool_u8"] = torch.zeros(41, dtype=torch.uint8, device=dev)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.decode94_fb(**cols, n_steps=8, tabs=tabs)
 
 
 def test_sweep_on_the_card_equals_the_cpu_sweep(dev):
@@ -148,7 +171,10 @@ def test_sweep_on_the_card_equals_the_cpu_sweep(dev):
                for p in sorted(glob.glob(os.path.join(ASSETS, "*.dcs94")))]
     arrays = fs.FlatSweep(streams).pack().compact_host_arrays()
     before = dict(kernels.LAUNCHES)
-    got = fs.FlatPipeline().to(dev)(**fs.packed_to_device(arrays, dev))
-    want = fs.FlatPipeline()(**fs.packed_to_device(arrays, "cpu"))
+    got = fs.FlatPipeline()(**fs.packed_to_device(arrays))
+    torch.cuda.synchronize()
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    want = fs.FlatPipeline("cpu")(**fs.packed_to_device(arrays, "cpu"))
     assert torch.equal(want, got.cpu())
-    assert all(kernels.LAUNCHES[k] == before[k] + 1 for k in before)
+    assert launched == {"decode94_fb": 1, "dequant_mix": 0,
+                        "transform94_planar": 1}
