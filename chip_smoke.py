@@ -14,13 +14,14 @@ non-zero):
      beside the kernel's bound (the larger of bytes over 3.35 TB/s and
      integer operations over 33.5 TOP/s)
   4. the whole sweep through FlatPipeline on the card: the launch counters
-     of the flat path's kernels (decode94_fb, transform94_planar) must move,
+     of the flat path's kernels (decode94_fb, transform94_pcm) must move,
      PCM must equal the plain-version sweep; timed as x realtime of decoded
-     audio, with the peak device memory of one sweep
+     audio, beside the host's enqueue time of one sweep (host clock, no
+     synchronise) and the peak device memory of one sweep
   5. all six assets/streams/*.dcs94 through the port on the card against the
      port's scalar ReferenceDecoder, bit for bit
   6. the sweep's stage spans with CUDA events (device time: the stages are
-     queued behind a device sleep): unpack, decode94_fb, transform, overlap
+     queued behind a device sleep): unpack, decode94_fb, transform94_pcm
 Then one JSON line of per-kernel results, and last the {"ok": true, ...}
 line.  There is no CPU path: without a CUDA device the script exits 1.
 """
@@ -152,7 +153,9 @@ def main():
         "dequant_mix": ("dequant_mix.cu",
                         "dcsexplorer_tpu/ops/pallas_kernels.py:83"),
         "transform94_planar": ("transform94.cu",
-                               "dcsexplorer_tpu/ops/transform.py:255")}
+                               "dcsexplorer_tpu/ops/transform.py:255"),
+        "transform94_pcm": ("transform94_pcm.cu",
+                            "dcsexplorer_tpu/ops/transform.py:255")}
 
     def check(name, plain_fn, kern_fn, reps_plain, reps_kern, n_bytes, n_ops):
         want = plain_fn()
@@ -219,6 +222,14 @@ def main():
                                              tabs["p2_c1"], tabs["cos"],
                                              tabs["sin"]), 3, 20,
           N * (258 * 4 + 4 + 2 * 128 * 4), 5800 * N)
+    # transform94_pcm reads the same words, the volume shift and the stream
+    # id, and writes [N, 240]; the transform's operations plus 16 blends of
+    # ~6 operations a frame
+    sid = args["sid"]
+    check("transform94_pcm",
+          lambda: tf.transform94_pcm_plain(fb, vol, sid, tabs),
+          lambda: kernels.transform94_pcm(fb, vol, sid, tabs), 3, 20,
+          N * (258 * 4 + 4 + 4 + 240 * 4), 5900 * N)
     del fb
 
     # 4. the whole sweep through the kernels
@@ -227,7 +238,7 @@ def main():
     pcm = pipe(**args)
     torch.cuda.synchronize()
     launches = dict(kernels.LAUNCHES)
-    on_path = ("decode94_fb", "transform94_planar")
+    on_path = ("decode94_fb", "transform94_pcm")
     if not all(launches[k] > 0 for k in on_path):
         raise AssertionError(f"a kernel of the path did not launch: {launches}")
     for k, r in results.items():
@@ -241,6 +252,16 @@ def main():
         raise AssertionError("sweep PCM outside u16 storage")
     del pcm_plain
     sweep_ms = _time_ms(lambda: pipe(**args), 5, torch)
+    # the host's side of one sweep: the time to enqueue it, with the card
+    # idle at the start and no synchronise inside the timer
+    enqueue = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe(**args)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    enqueue_ms = sum(enqueue) / len(enqueue)
     plain_sweep_ms = _time_ms(lambda: plain_pipe(**args), 2, torch)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
@@ -253,7 +274,9 @@ def main():
           f"plain sweep; device {sweep_ms:.3f} ms = "
           f"{audio_s / (sweep_ms / 1e3):.1f}x realtime "
           f"(plain {plain_sweep_ms:.3f} ms = "
-          f"{audio_s / (plain_sweep_ms / 1e3):.1f}x); "
+          f"{audio_s / (plain_sweep_ms / 1e3):.1f}x); host enqueue of one "
+          f"sweep {enqueue_ms:.4f} ms (min {min(enqueue):.4f}, max "
+          f"{max(enqueue):.4f}); "
           f"upload {upload_s * 1e3:.3f} ms; peak memory of one sweep "
           f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above "
           f"the resident inputs)")
@@ -284,13 +307,12 @@ def main():
     # 6. stage spans of the sweep (FlatPipeline.forward's steps, in order).
     # A 0.1 s device sleep first lets the host enqueue every stage before
     # the card reaches them, so the spans hold device time only.
-    names = ("unpack", "decode94_fb", "transform", "overlap")
+    names = ("unpack", "decode94_fb", "transform94_pcm")
     spans = {k: [] for k in names}
     for rep in range(4):
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
         torch.cuda._sleep(int(0.1 * 1.98e9))
         ev[0].record()
-        sstart = bd.stream_starts(args["sid"])
         sb, mx, vs = (args["start_bit"].int(), args["mix_u16"].int(),
                       args["vol_u8"].int())
         ev[1].record()
@@ -298,10 +320,8 @@ def main():
                             mx, args["hdr_tab"], args["fmt_tab"],
                             args["sub_tab"], n_steps, tabs)
         ev[2].record()
-        re, im = tf.transform94_planar(fb, vs, tabs)
+        out = tf.transform94_pcm(fb, vs, args["sid"], tabs)
         ev[3].record()
-        out = tf.overlap_resolve_planar(re, im, sstart, tabs)
-        ev[4].record()
         torch.cuda.synchronize()
         if rep:                                   # the first is a warm-up
             for k, a, b in zip(names, ev, ev[1:]):

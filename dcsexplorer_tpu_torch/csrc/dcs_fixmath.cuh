@@ -1,4 +1,4 @@
-// ADSP-2105 fixed-point numerics shared by the decode kernels.
+// ADSP-2105 fixed-point numerics shared by the kernels.
 //
 // Device twins of dcsexplorer_tpu_torch/ops/fixmath.py (and of the JAX
 // reference dcsexplorer_tpu/ops/fixmath.py).  Values use u16-in-int32
@@ -58,10 +58,60 @@ __device__ __forceinline__ int accum_word(int old, int scaled, int mix) {
     return (int)(prod >> 16);
 }
 
+// overlap-add blend round(new * c_new + old * c_old): bits 16..31 of
+// (s16(new) * u16(c_new) << 1) + (s16(old) * u16(c_old) << 1) + $8000, mod
+// 2^32 (each doubled product can reach 2^32)
+__device__ __forceinline__ int overlap_mix(int nv, int ov, int c_new,
+                                           int c_old) {
+    const uint32_t a = (uint32_t)(s16(nv) * (c_new & kM16)) << 1;
+    const uint32_t b = (uint32_t)(s16(ov) * (c_old & kM16)) << 1;
+    return (int)(((a + b + 0x8000u) >> 16) & kM16);
+}
+
 // volume normalization s16(x) >> vs; counts >= 32 fill with the sign bit
 // in the reference, which a count clamped to 31 reproduces
 __device__ __forceinline__ int volume_shift(int x, int vs) {
     return (s16(x) >> min(max(vs, 0), 31)) & kM16;
+}
+
+// The 1994+ inverse transform's two building blocks (transform94.cu,
+// transform94_pcm.cu).
+
+// pre-passes 1 and 2 on complex pair i (frame-buffer words 2i, 2i+1 and
+// $100-2i, $101-2i; pre-pass coefficients c0, c1 of pair i): fold the ends
+// through +/- sums, negate via x$8000, twiddle with rounding.  fx0, fx1 come
+// out as s16, fy0, fy1 in u16 storage
+__device__ __forceinline__ void fold_pair(int w_x0, int w_x1, int w_y0,
+                                          int w_y1, int c0, int c1, int &fx0,
+                                          int &fx1, int &fy0, int &fy1) {
+    const int x0 = s16(w_x0), x1 = s16(w_x1), y0 = s16(w_y0),
+              y1 = s16(w_y1);
+    const int n_x0 = s16(mulss(sat16(x0 + y0), 0x8000));
+    const int n_y0 = s16(mulss(sat16(x0 - y0), 0x8000));
+    const int n_x1 = s16(mulss(sat16(x1 - y1), 0x8000));
+    const int n_y1 = s16(mulss(sat16(x1 + y1), 0x8000));
+    const int sc0 = s16(c0), sc1 = s16(c1);
+    const uint32_t pb0 = (uint32_t)(n_y0 * sc0);
+    const int prod0 = mac_round((uint32_t)(n_y1 * sc1) - pb0, pb0);
+    const uint32_t pb1 = (uint32_t)(n_y0 * sc1);
+    const int prod1 = mac_round((uint32_t)(n_y1 * sc0) + pb1, pb1);
+    fx0 = s16(sat16(prod1 + n_x0));
+    fx1 = s16(sat16(prod0 + n_x1));
+    fy0 = sat16(n_x0 - prod1);
+    fy1 = sat16(prod0 - n_x1);
+}
+
+// one radix-2 stage butterfly: u <- sat(u - t), a <- sat(u + t) with
+// t = round(a * (c_cos + i c_sin)); u16 storage in and out
+__device__ __forceinline__ void butterfly(int &ur, int &ui, int &ar, int &ai,
+                                          int c_cos, int c_sin) {
+    int tr, ti;
+    rotate_round(ar, ai, c_cos, c_sin, tr, ti);
+    const int u_r = s16(ur), u_i = s16(ui);
+    ur = sat16(u_r - tr);
+    ar = sat16(u_r + tr);
+    ui = sat16(u_i - ti);
+    ai = sat16(u_i + ti);
 }
 
 }  // namespace dcs

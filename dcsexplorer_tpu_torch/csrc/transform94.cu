@@ -16,7 +16,9 @@
 // stage, the re/im planes (128 words each) in shared memory with a
 // __syncthreads() between stages.  The twiddle and pre-pass tables come in
 // as device tensors (the module's buffers) through the read-only cache.
-// Several frames per block and register-resident stages are later work.
+// The flat sweep runs transform94_pcm.cu instead (a warp per frame, stages
+// in registers, the overlap resolve fused); this kernel serves callers that
+// need the planes.
 
 #include <cuda_runtime.h>
 
@@ -39,25 +41,11 @@ transform94_kernel(const int *__restrict__ fb, const int *__restrict__ vol,
     const int i = threadIdx.x;
     const int *row = fb + (size_t)blockIdx.x * 512;
 
-    int x0 = s16(row[2 * i]), x1 = s16(row[2 * i + 1]);
-    int y0 = s16(row[0x100 - 2 * i]), y1 = s16(row[0x101 - 2 * i]);
-
-    // pre-pass 1: fold the ends through +/- sums, then negate via x$8000
-    int n_x0 = s16(mulss(sat16(x0 + y0), 0x8000));
-    int n_y0 = s16(mulss(sat16(x0 - y0), 0x8000));
-    int n_x1 = s16(mulss(sat16(x1 - y1), 0x8000));
-    int n_y1 = s16(mulss(sat16(x1 + y1), 0x8000));
-
-    // pre-pass 2: complex twiddle fold with rounding
-    int c0 = s16(p2_c0[i]), c1 = s16(p2_c1[i]);
-    uint32_t pb0 = (uint32_t)(n_y0 * c0);
-    int prod0 = dcs::mac_round((uint32_t)(n_y1 * c1) - pb0, pb0);
-    uint32_t pb1 = (uint32_t)(n_y0 * c1);
-    int prod1 = dcs::mac_round((uint32_t)(n_y1 * c0) + pb1, pb1);
-    int fx0 = s16(sat16(prod1 + n_x0));
-    int fx1 = s16(sat16(prod0 + n_x1));
-    fy0[i] = sat16(n_x0 - prod1);
-    fy1[i] = sat16(prod0 - n_x1);
+    // pre-passes 1 and 2 on pair i
+    int fx0, fx1;
+    dcs::fold_pair(row[2 * i], row[2 * i + 1], row[0x100 - 2 * i],
+                   row[0x101 - 2 * i], p2_c0[i], p2_c1[i], fx0, fx1, fy0[i],
+                   fy1[i]);
     __syncthreads();
 
     // pre-pass 3: x[q] +/- y[128+q]; y[128], y[129] are the center
@@ -77,13 +65,12 @@ transform94_kernel(const int *__restrict__ fb, const int *__restrict__ vol,
         int g = i / h;
         int u = g * part + i % h;
         int a = u + h;
-        int t_re, t_im;
-        dcs::rotate_round(re[a], im[a], cos_tab[g], sin_tab[g], t_re, t_im);
-        int ur = s16(re[u]), ui = s16(im[u]);
-        re[u] = sat16(ur - t_re);
-        re[a] = sat16(ur + t_re);
-        im[u] = sat16(ui - t_im);
-        im[a] = sat16(ui + t_im);
+        int ur = re[u], ui = im[u], ar = re[a], ai = im[a];
+        dcs::butterfly(ur, ui, ar, ai, cos_tab[g], sin_tab[g]);
+        re[u] = ur;
+        re[a] = ar;
+        im[u] = ui;
+        im[a] = ai;
         __syncthreads();
     }
 

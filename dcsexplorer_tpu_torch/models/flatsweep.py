@@ -8,11 +8,12 @@ stream's first frame.  The sweep runs
 
     host:   native prescan94 + native VM trace -> FlatSweep.pack()
     device: decode94_fb (band controls, symbol decode, dequant/mix)
-            -> inverse transform -> overlap resolve -> PCM
+            -> transform94_pcm (inverse transform, overlap resolve) -> PCM
 
 with the device part as ``FlatPipeline`` (an ``nn.Module`` whose buffers are
-the codec's constant tables).  On CUDA tensors the decode and the transform
-run as hand-written kernels (``ops/kernels.py``); on CPU tensors their plain
+the codec's constant tables).  On CUDA tensors the decode and the
+transform-to-PCM run as two hand-written kernels (``ops/kernels.py``), and
+no plain-torch stage of any size runs; on CPU tensors their plain
 PyTorch versions run.  The host part is the port's own native runtime
 (``native/``, ``ops/prescan.py``, ``vm/native_tracer.py``).  The entry
 points run on the card unless the caller names another device.  Bit-exact
@@ -120,11 +121,10 @@ def flat_pipeline_packed(pool_u8, sid, start_bit, bt_u8, mix_u16, vol_u8,
     stream starts derive from sid.  ``plain`` runs the plain versions of
     the kernels on any device.  Returns pcm [N, 240] int32 u16 storage."""
     decode = bd.decode94_fb_plain if plain else bd.decode94_fb
-    transform = tf.transform94_planar_plain if plain else tf.transform94_planar
+    to_pcm = tf.transform94_pcm_plain if plain else tf.transform94_pcm
     fb = decode(pool_u8, sid, start_bit.int(), bt_u8, mix_u16.int(), hdr_tab,
                 fmt_tab, sub_tab, n_steps, tabs)
-    re, im = transform(fb, vol_u8.int(), tabs)
-    return tf.overlap_resolve_planar(re, im, bd.stream_starts(sid), tabs)
+    return to_pcm(fb, vol_u8.int(), sid, tabs)
 
 
 class FlatPipeline(nn.Module):

@@ -25,14 +25,20 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO = os.path.dirname(_PKG)
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("decode94_fb.cu", "dequant_mix.cu", "transform94.cu")
+SOURCES = ("decode94_fb.cu", "dequant_mix.cu", "transform94.cu",
+           "transform94_pcm.cu")
 HEADERS = ("dcs_fixmath.cuh",)
 LIB_PATH = os.path.join(_REPO, "build", "torch_kernels", "libdcs_torch.so")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 # launches per kernel; each wrapper adds one where it launches its kernel
-LAUNCHES = {"decode94_fb": 0, "dequant_mix": 0, "transform94_planar": 0}
+LAUNCHES = {"decode94_fb": 0, "dequant_mix": 0, "transform94_planar": 0,
+            "transform94_pcm": 0}
+
+# frames per block of csrc/transform94_pcm.cu (its kTile): a block
+# transforms the frame before its tile again for the overlap carry
+TRANSFORM94_PCM_TILE = 64
 
 _lib = None
 
@@ -48,6 +54,8 @@ _SIGNATURES = {
     "dcs_dequant_mix": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     # fb, vol_shift, p2_c0, p2_c1, cos, sin, out_re, out_im, n_frames, stream
     "dcs_transform94_planar": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
+    # fb, vol_shift, sid, tables (_PCM_TABLES order), pcm, n_frames, stream
+    "dcs_transform94_pcm": [_P, _P, _P, *[_P] * 8, _P, _I, _P],
 }
 
 
@@ -197,3 +205,33 @@ def transform94_planar(fb, vol_shift, p2_c0, p2_c1, cos, sin):
                 p2_c1.data_ptr(), cos.data_ptr(), sin.data_ptr(),
                 re.data_ptr(), im.data_ptr(), F)
     return re, im
+
+
+# the codec tables transform94_pcm reads, in the order of its C arguments
+_PCM_TABLES = (("p2_c0", 64), ("p2_c1", 64), ("cos", 128), ("sin", 128),
+               ("ovl_new", 16), ("ovl_old", 16), ("ext_half", 120),
+               ("save_half", 8))
+
+
+def transform94_pcm(fb, vol_shift, sid, tabs):
+    """Frame buffers -> PCM on the card (csrc/transform94_pcm.cu): the
+    transform, overlap resolve and extraction in one launch; see
+    transform.transform94_pcm_plain for the contract."""
+    F = fb.shape[0]
+    dev = fb.device
+    _check("fb", fb, torch.int32, (F, 512))
+    _check("vol_shift", vol_shift, torch.int32, (F,), dev)
+    _check("sid", sid, torch.int32, (F,), dev)
+    for name, n in _PCM_TABLES:
+        _check(name, tabs[name], torch.int32, (n,), dev)
+    pcm = torch.empty((F, 240), dtype=torch.int32, device=dev)
+    # the kernel loads and stores 16-byte words of each row
+    for name, t in (("fb", fb), ("pcm", pcm)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: not 16-byte aligned")
+    if F:
+        _launch("transform94_pcm", "dcs_transform94_pcm", dev,
+                fb.data_ptr(), vol_shift.data_ptr(), sid.data_ptr(),
+                *[tabs[name].data_ptr() for name, _ in _PCM_TABLES],
+                pcm.data_ptr(), F)
+    return pcm

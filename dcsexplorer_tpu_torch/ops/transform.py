@@ -8,9 +8,13 @@ saturation and the MAC's convergent-rounding quirk; the output is the
 volume-shifted complex words as two planes, re[k] = word 2k and
 im[k] = word 2k+1, in bit-reversed storage order.
 
-``transform94_planar`` launches the CUDA kernel ``csrc/transform94.cu`` for
-CUDA tensors and takes ``transform94_planar_plain`` for CPU tensors.
-``overlap_resolve_planar`` is plain PyTorch on every device.  The reference's
+``transform94_pcm`` is the flat sweep's stage: the transform, the overlap
+resolve and the extraction in one, frame buffers in and PCM out.  It
+launches ``csrc/transform94_pcm.cu`` for CUDA tensors and takes
+``transform94_pcm_plain`` (the composition of the two plain stages) for CPU
+tensors.  ``transform94_planar`` launches ``csrc/transform94.cu`` likewise;
+the sessions slice needs its planes.  ``overlap_resolve_planar`` is plain
+PyTorch on every device.  The reference's
 interleaved ``transform94`` / ``transform94_raw`` are not carried over: the
 planar form is the only one the sweep runs.  Tables arrive as tensors
 (``tabs``, built by ``models/flatsweep.codec_tables``).
@@ -18,7 +22,7 @@ planar form is the only one the sweep runs.  Tables arrive as tensors
 
 import torch
 
-from . import kernels
+from . import band_decode, kernels
 from .fixmath import M16, mac_round, mulss, overlap_mix, rotate_round, s16
 from .fixmath import sat16, volume_shift
 
@@ -127,3 +131,23 @@ def overlap_resolve_planar(re, im, stream_start, tabs):
                                        co[k::2].reshape(1, 8))
         out.append(ext_plane)
     return torch.stack(out, dim=-1).reshape(F, 240).int()
+
+
+def transform94_pcm_plain(fb, vol_shift, sid, tabs):
+    """Plain version of the transform94_pcm kernel: the inverse transform,
+    then the overlap resolve with the carry reset where the stream id
+    changes (and at frame 0).
+
+    fb [N, 512] int32 u16 storage; vol_shift [N]; sid [N].
+    Returns pcm [N, 240] int32 u16 storage."""
+    re, im = transform94_planar_plain(fb, vol_shift, tabs)
+    return overlap_resolve_planar(re, im, band_decode.stream_starts(sid),
+                                  tabs)
+
+
+def transform94_pcm(fb, vol_shift, sid, tabs):
+    """Frame buffers -> PCM (see transform94_pcm_plain): plain version for
+    CPU tensors, the CUDA kernel for CUDA tensors."""
+    if fb.device.type == "cpu":
+        return transform94_pcm_plain(fb, vol_shift, sid, tabs)
+    return kernels.transform94_pcm(fb, vol_shift, sid, tabs)

@@ -11,7 +11,8 @@ terminators, raw fields, codes whose high bits alias into the width field),
 streams that cross block boundaries so a frame's previous band types sit in
 another block, bit cursors running past the end of a pool whose length is
 not a multiple of 4, random prior frame buffers, saturating frame buffers
-and volume shifts past 31.  Every comparison is bit for bit.
+and volume shifts past 31, stream starts at the transform-to-PCM kernel's
+tile edges.  Every comparison is bit for bit.
 chip_smoke.py covers the real catalog.
 """
 
@@ -147,6 +148,33 @@ def test_transform94_kernel_on_edge_frames(dev, tabs):
     assert all(torch.equal(w, k) for w, k in zip(want, got))
 
 
+T = kernels.TRANSFORM94_PCM_TILE
+
+
+@pytest.mark.parametrize("n", [1, T - 1, T, T + 1, 3 * T + 5])
+def test_transform94_pcm_kernel_on_edge_frames(dev, tabs, n):
+    # saturating and random frames, volume shifts up to 40, and stream ids
+    # in runs of one frame, runs that cross tiles, and starts at T-1, T, T+1
+    rng = np.random.default_rng(n)
+    fb = rng.integers(0, 0x10000, size=(n, 512)).astype(np.int32)
+    fb[0:n:5, :256] = 0x8000
+    fb[1:n:5, :256] = 0x7FFF
+    fb[2:n:5, :258] = 0x8000
+    fb[3:n:5] = rng.choice([0x8000, 0x7FFF, 0, 1, 0xFFFF, 0x4000],
+                           size=(len(range(3, n, 5)), 512))
+    vs = rng.integers(0, 41, size=n).astype(np.int32)
+    fb_t, vs_t = torch.tensor(fb, device=dev), torch.tensor(vs, device=dev)
+    runs = np.repeat(np.arange(n), rng.integers(1, 2 * T, size=n))[:n]
+    layouts = (np.zeros(n), np.arange(n), runs,
+               np.searchsorted([T - 1, T, T + 1], np.arange(n), "right"))
+    for sid in layouts:
+        sid_t = torch.tensor(sid.astype(np.int32), device=dev)
+        want = tf.transform94_pcm_plain(fb_t, vs_t, sid_t, tabs)
+        got = kernels.transform94_pcm(fb_t, vs_t, sid_t, tabs)
+        torch.cuda.synchronize()
+        assert torch.equal(want, got)
+
+
 def test_wrappers_refuse_bad_tensors(dev, tabs):
     fb = torch.zeros((4, 512), dtype=torch.int32, device=dev)
     vs = torch.zeros(4, dtype=torch.int32, device=dev)
@@ -160,6 +188,18 @@ def test_wrappers_refuse_bad_tensors(dev, tabs):
     with pytest.raises(ValueError, match="CUDA"):
         kernels.transform94_planar(fb, vs.cpu(), tabs["p2_c0"], tabs["p2_c1"],
                                    tabs["cos"], tabs["sin"])
+    sid = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        kernels.transform94_pcm(fb, vs, sid.long(), tabs)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.transform94_pcm(fb.t().contiguous().t(), vs, sid, tabs)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.transform94_pcm(fb, vs, sid.cpu(), tabs)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.transform94_pcm(fb, vs, sid[:3], tabs)
+    skewed = torch.zeros(4 * 512 + 1, dtype=torch.int32, device=dev)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.transform94_pcm(skewed.view(4, 512), vs, sid, tabs)
     cols = _random_catalog(64, 0, dev)
     cols["pool_u8"] = torch.zeros(41, dtype=torch.uint8, device=dev)[1:]
     with pytest.raises(ValueError, match="aligned"):
@@ -177,4 +217,4 @@ def test_sweep_on_the_card_equals_the_cpu_sweep(dev):
     want = fs.FlatPipeline("cpu")(**fs.packed_to_device(arrays, "cpu"))
     assert torch.equal(want, got.cpu())
     assert launched == {"decode94_fb": 1, "dequant_mix": 0,
-                        "transform94_planar": 1}
+                        "transform94_planar": 0, "transform94_pcm": 1}

@@ -1,7 +1,9 @@
 """Port parity: the plain PyTorch inverse transform and overlap resolve of
 dcsexplorer_tpu_torch equal the JAX reference (transform94_planar,
 overlap_resolve_planar) bit for bit on random frame buffers, including
-saturation and rounding edges and volume shifts past 31."""
+saturation and rounding edges and volume shifts past 31; so does the
+transform-to-PCM stage of the flat sweep (transform94_pcm_plain), with
+stream starts around the CUDA kernel's tile edges."""
 
 import numpy as np
 import pytest
@@ -72,3 +74,46 @@ def test_overlap_resolve_planar_matches_jax(tabs, starts):
                                      torch.from_numpy(sstart), tabs)
     assert got.shape == (F, 240) and got.dtype == torch.int32
     assert np.array_equal(np.asarray(want), got.numpy())
+
+
+T = kernels.TRANSFORM94_PCM_TILE
+
+
+def _sid_layout(name, n):
+    if name == "one_stream":               # a stream starts at frame 0 only
+        return np.zeros(n, np.int32)
+    if name == "single_frame_streams":
+        return np.arange(n, dtype=np.int32)
+    if name == "tile_edges":               # starts at T-1, T, T+1 and 2T
+        return np.searchsorted([T - 1, T, T + 1, 2 * T], np.arange(n),
+                               side="right").astype(np.int32)
+    rng = np.random.default_rng(7)         # runs of 1..2T frames
+    return np.repeat(np.arange(n), rng.integers(1, 2 * T, size=n))[:n] \
+        .astype(np.int32)
+
+
+@pytest.mark.parametrize("layout", ["one_stream", "single_frame_streams",
+                                    "tile_edges", "random_runs"])
+def test_transform94_pcm_plain_matches_jax(tabs, layout):
+    n = 2 * T + 3
+    fb, vs = _random_frames(n, 41, max_vs=41)
+    sid = _sid_layout(layout, n)
+    sstart = np.concatenate([[True], sid[1:] != sid[:-1]])
+    re, im = jax.jit(jtf.transform94_planar)(jnp.asarray(fb), jnp.asarray(vs))
+    want = jax.jit(jtf.overlap_resolve_planar)(re, im, jnp.asarray(sstart))
+    got = ttf.transform94_pcm_plain(torch.from_numpy(fb), torch.from_numpy(vs),
+                                    torch.from_numpy(sid), tabs)
+    assert got.shape == (n, 240) and got.dtype == torch.int32
+    assert np.array_equal(np.asarray(want), got.numpy())
+
+
+def test_transform94_pcm_cpu_dispatch_and_cuda_only_kernel(tabs):
+    fb, vs = _random_frames(8, 6, max_vs=41)
+    sid = torch.tensor([0, 0, 0, 1, 2, 2, 2, 2], dtype=torch.int32)
+    fb_t, vs_t = torch.from_numpy(fb), torch.from_numpy(vs)
+    before = dict(kernels.LAUNCHES)
+    via = ttf.transform94_pcm(fb_t, vs_t, sid, tabs)
+    assert torch.equal(via, ttf.transform94_pcm_plain(fb_t, vs_t, sid, tabs))
+    assert kernels.LAUNCHES == before
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.transform94_pcm(fb_t, vs_t, sid, tabs)
