@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one GPU: the flat 1994+ catalog
-sweep (dcsexplorer_tpu_torch) end to end, through its hand-written kernels.
+sweep and the 1994+ ROM session path (dcsexplorer_tpu_torch) end to end,
+through their hand-written kernels.
 
     python3 chip_smoke.py
 
@@ -22,8 +23,31 @@ non-zero):
      port's scalar ReferenceDecoder, bit for bit
   6. the sweep's stage spans with CUDA events (device time: the stages are
      queued behind a device sleep): unpack, decode94_fb, transform94_pcm
-Then one JSON line of per-kernel results, and last the {"ok": true, ...}
-line.  There is no CPU path: without a CUDA device the script exits 1.
+  7. the session path at bench.py's session6 width: load
+     dcsexplorer_tpu_torch/data/session6.zip, build the stream bank on the
+     card (decode94_bank), serve one batch of 320 distinct sessions x 1,000
+     frames x 6 voices through SessionServer, and play session 0 alone
+     through play_session (the carried-state transform94_pcm); the launch
+     counters of decode94_bank, segments94, session_mix94, transform94_pcm
+     and transform94_pcm_carry must move.  The bank, all 2,778 rows, against
+     decode94_bank_plain on the same columns on the card, bit for bit
+  8. that batch's PCM against the same batch through the plain versions on
+     the card, session 0 against play_session's, and the first and last
+     sessions against the port's scalar ReferenceDecoder driven by the same
+     port bytes (first 250 frames); the session kernels against their plain
+     versions at the batch's shapes (as phase 3, with a random carried
+     overlap state for transform94_pcm_carry)
+  9. session timing: the device time of one batch (x realtime) and its
+     stage spans, serve() x realtime over 8 batches (trace -> wire ->
+     upload -> kernels -> PCM fetch; all 8 batches' audio over the time from
+     the call to the last arrival) with every gap between arrivals and each
+     batch's latency from the start of its trace, the native trace and the
+     host's enqueue time of one batch, the wire's upload and the PCM fetch
+     from and into pinned and pageable memory, and the peak device memory of
+     one batch
+Then one JSON line of per-kernel results (launches: over both paths, each
+path's own printed in phases 4 and 7), and last the {"ok": true, ...} line.
+There is no CPU path: without a CUDA device the script exits 1.
 """
 
 import glob
@@ -36,6 +60,10 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 STREAMS = os.path.join(HERE, "assets", "streams")
 COPIES = 144                   # x (music_a, music_b): bench.py's flat94_music
+SESSION6_ZIP = os.path.join(HERE, "dcsexplorer_tpu_torch", "data",
+                            "session6.zip")
+SESSIONS, SESSION_FRAMES, VOICES, SEG_E = 320, 1000, 6, 32   # bench.py session6
+REF_FRAMES = 250               # frames held against the scalar decoder
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12      # H100 SXM: 64 INT32 lanes/SM, 132 SMs, 1.98 GHz,
                                # a multiply-add counted as two
@@ -71,6 +99,17 @@ def _bound(n_bytes, n_ops):
     return (by, "bytes") if by >= op else (op, "operations")
 
 
+def session_events(b):
+    """Session b of bench.py's session6 (bench_session6.session_events):
+    tracks 1-6 start at staggered frames, then a master-volume command."""
+    events = {}
+    for t in range(1, 7):
+        events.setdefault((b * 7 + t * 3) % 40, []).extend([0x00, t])
+    vol = 0x40 + (b % 64)
+    events.setdefault(0, []).extend([0x55, 0xAA, vol, vol ^ 0xFF])
+    return events
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -79,9 +118,12 @@ def main():
     import numpy as np
     from dcsexplorer_tpu_torch import native
     from dcsexplorer_tpu_torch.models import flatsweep as fs
+    from dcsexplorer_tpu_torch.models import pipeline, romplay
     from dcsexplorer_tpu_torch.ops import band_decode as bd
     from dcsexplorer_tpu_torch.ops import kernels
     from dcsexplorer_tpu_torch.ops import transform as tf
+    from dcsexplorer_tpu_torch.refdec import decoder as rd
+    from dcsexplorer_tpu_torch.rom import zipload
 
     dev = torch.device("cuda", 0)
 
@@ -155,9 +197,18 @@ def main():
         "transform94_planar": ("transform94.cu",
                                "dcsexplorer_tpu/ops/transform.py:255"),
         "transform94_pcm": ("transform94_pcm.cu",
-                            "dcsexplorer_tpu/ops/transform.py:255")}
+                            "dcsexplorer_tpu/ops/transform.py:255"),
+        "decode94_bank": ("decode94_bank.cu",
+                          "dcsexplorer_tpu/models/pipeline.py:76"),
+        "segments94": ("segments94.cu",
+                       "dcsexplorer_tpu/models/romplay.py:115"),
+        "session_mix94": ("session_mix94.cu",
+                          "dcsexplorer_tpu/models/pipeline.py:308"),
+        "transform94_pcm_carry": ("transform94_pcm.cu",
+                                  "dcsexplorer_tpu/ops/transform.py:352")}
 
-    def check(name, plain_fn, kern_fn, reps_plain, reps_kern, n_bytes, n_ops):
+    def check(name, plain_fn, kern_fn, reps_plain, reps_kern, n_bytes, n_ops,
+              phase=3):
         want = plain_fn()
         got = kern_fn()
         torch.cuda.synchronize()
@@ -169,7 +220,7 @@ def main():
         plain_ms = _time_ms(plain_fn, reps_plain, torch)
         ms = _time_ms(kern_fn, reps_kern, torch)
         bound_ms, bound_by = _bound(n_bytes, n_ops)
-        print(f"phase 3 {name}: bit-exact, kernel {ms:.4f} ms, "
+        print(f"phase {phase} {name}: bit-exact, kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}; {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} G "
               f"int ops) = {100 * bound_ms / ms:.1f}% of the bound")
@@ -195,6 +246,15 @@ def main():
     print(f"phase 3 decode94_fb with n_steps 0 (no walk, stores only): "
           f"{_time_ms(lambda: kernels.decode94_fb(**no_walk), 20, torch):.4f}"
           f" ms")
+
+    # decode94_bank on the same columns without the mix: the walk, and one
+    # 512-byte row of scaled samples a frame; ~4 integer operations a
+    # decoded symbol (extract, look up, re-centre, scale)
+    bank_cols = {k: v for k, v in cols.items() if k != "mix"}
+    check("decode94_bank", lambda: bd.decode94_bank_plain(**bank_cols),
+          lambda: kernels.decode94_bank(**bank_cols), 2, 20,
+          N * (4 + 4 + 16) + arrays["pool_u8"].size + S * 18
+          + (N + 1) * 256 * 2, 4 * n_symbols)
 
     mix = args["mix_u16"]
     check("dequant_mix", lambda: bd.dequant_mix_plain(vals, (scale, total),
@@ -333,6 +393,231 @@ def main():
           + ", ".join(f"{k} {v:.4f} (min {min(spans[k]):.4f}, "
                       f"max {max(spans[k]):.4f})" for k, v in mean.items())
           + f"; sum {sum(mean.values()):.4f}")
+
+    del fb, out, pcm, args, cols, bank_cols
+    torch.cuda.empty_cache()
+
+    # 7. the session path, once, through the entry points a user calls
+    S, T, C = SESSIONS, SESSION_FRAMES, VOICES
+    batch = [session_events(b) for b in range(S)]
+    session_audio_s = S * T * 240 / fs.SAMPLE_RATE
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    rs, _ = zipload.load_zip_file(SESSION6_ZIP)
+    if rs.check() != 1 or rs.os_version != rd.OS94:
+        raise AssertionError("session6.zip does not load as an OS94 ROM")
+    bank = romplay.build_rom_bank(rs, dev)
+    torch.cuda.synchronize()
+    bank_s = time.perf_counter() - t0
+    srv = romplay.SessionServer(rs, S, T, n_ch=C, seg_e=SEG_E, bank=bank,
+                                device=dev)
+    got = srv.serve_one(batch)
+    one, _ = romplay.play_session(
+        rs, {f: (lambda d, bs=tuple(bs): [d.write_data_port(x) for x in bs])
+             for f, bs in batch[0].items()}, T, bank=bank)
+    torch.cuda.synchronize()
+    s_launches = dict(kernels.LAUNCHES)
+    on_session_path = ("decode94_bank", "segments94", "session_mix94",
+                       "transform94_pcm", "transform94_pcm_carry")
+    if not all(s_launches[k] > 0 for k in on_session_path):
+        raise AssertionError(f"a kernel of the session path did not launch: "
+                             f"{s_launches}")
+    if got.shape != (S, T * 240) or got.dtype != np.int16:
+        raise AssertionError(f"session batch {got.shape} {got.dtype}")
+    # the bank the batch ran on, against the plain version on its columns
+    bcols = bank.columns()
+    b_steps = bcols.pop("n_steps")
+    bargs = {k: torch.tensor(v, device=dev) for k, v in bcols.items()}
+    want_bank = bd.decode94_bank_plain(**bargs, n_steps=b_steps, tabs=tabs)
+    err = _max_abs_err(want_bank, bank.scaled)
+    if err != 0 or want_bank.shape != bank.scaled.shape:
+        raise AssertionError(f"session6 bank != decode94_bank_plain (max abs "
+                             f"err {err})")
+    del bargs, want_bank
+    print(f"phase 7 sessions: session6.zip, bank {bank.total_rows()} rows "
+          f"built in {bank_s:.3f} s (load + prescan + decode94_bank), "
+          f"bit-exact with decode94_bank_plain (n_steps {b_steps}); one "
+          f"batch of {S} sessions x {T} frames x {C} voices "
+          f"({session_audio_s:.1f} s audio) through SessionServer and "
+          f"session 0 through play_session, launches {s_launches}")
+
+    # 8. the batch against the plain path on the card and the scalar decoder
+    with romplay.SessionServer(rs, S, T, n_ch=C, seg_e=SEG_E, bank=bank,
+                               device=dev, plain=True) as plain_srv:
+        want = plain_srv.serve_one(batch)
+    if not np.array_equal(want, got):
+        bad = np.argwhere(want != got)
+        raise AssertionError(f"session batch != plain batch at {bad.shape[0]}"
+                             f" samples, first (session, sample) {bad[0]}")
+    del want
+    if not np.array_equal(one, got[0]):
+        raise AssertionError("play_session != the served batch's session 0")
+    t0 = time.perf_counter()
+    for b in (0, S - 1):
+        dec = rd.ReferenceDecoder()
+        dec.default_volume = 0x67
+        dec.load_rom_set(rs)
+        dec.soft_boot()
+        ref = []
+        for f in range(REF_FRAMES):
+            for byte in batch[b].get(f, ()):
+                dec.write_data_port(byte)
+            ref.extend(dec.next_samples(240))
+        ref = np.array(ref, dtype=np.int16)
+        if not np.array_equal(ref, got[b, :REF_FRAMES * 240]):
+            bad = np.nonzero(ref != got[b, :REF_FRAMES * 240])[0]
+            raise AssertionError(f"session {b}: {bad.size} samples differ "
+                                 f"from the scalar decoder, first {bad[0]}")
+        if not np.abs(ref.astype(np.int32)).max() > 0:
+            raise AssertionError(f"session {b} is silent")
+    print(f"phase 8 sessions: PCM of all {S} sessions bit-exact with the "
+          f"plain batch on the card; session 0 with play_session's; "
+          f"sessions 0 and {S - 1} bit-exact with "
+          f"the port's ReferenceDecoder over {REF_FRAMES} frames "
+          f"({time.perf_counter() - t0:.3f} s scalar)")
+
+    # the session kernels at the batch's shapes
+    wire_np, E = srv.prepare(batch)
+    wire = torch.tensor(wire_np, device=dev)
+    tabs = dict(srv.decoder.named_buffers())
+    scaled, F, R = srv.decoder.scaled, S * T, bank.total_rows()
+    # segments94 reads the wire and writes rows, mix [F, C] and vol [F]; a
+    # binary search of log2(E) steps and a multiply-add an output
+    rows, mixes, vols = check(
+        "segments94", lambda: romplay.segments94_plain(wire, S, T, C, E),
+        lambda: kernels.segments94(wire, S, T, C, E), 2, 20,
+        wire.numel() + F * C * 8 + F * 4, F * C * (2 * 5 + 3), phase=8)
+    # session_mix94 reads rows, mix and the bank once and writes [F, 512];
+    # ~3 operations per position and voice (multiply-add, shift)
+    fbs = check(
+        "session_mix94", lambda: bd.session_mix94_plain(scaled, rows, mixes),
+        lambda: kernels.session_mix94(scaled, rows, mixes), 1, 20,
+        F * C * 8 + R * 256 * 2 + F * 512 * 4, 3 * 256 * C * F, phase=8)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    ov0 = torch.randint(0, 1 << 16, (S, 16), generator=gen, device=dev,
+                        dtype=torch.int32)
+    sid = torch.arange(S, dtype=torch.int32, device=dev).repeat_interleave(T)
+    check("transform94_pcm_carry",
+          lambda: tf.transform94_pcm_plain(fbs, vols, sid, tabs, ov0),
+          lambda: kernels.transform94_pcm(fbs, vols, sid, tabs, ov0), 1, 20,
+          F * (258 * 4 + 4 + 4 + 240 * 4) + S * 16 * 4 * 2, 5900 * F,
+          phase=8)
+    del rows, mixes, vols, fbs
+    for k, r in results.items():        # phase 4's launches and phase 7's
+        r["launches"] += s_launches[k]
+
+    # 9. session timing
+    batch_ms = _time_ms(lambda: srv.decode_wire(wire, E), 5, torch)
+    names = ("segments94", "session_mix94", "transform94_pcm", "int16")
+    spans = {k: [] for k in names}
+    for rep in range(4):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(5)]
+        torch.cuda._sleep(int(0.1 * 1.98e9))
+        ev[0].record()
+        rows, mixes, vols = romplay.segments94(wire, S, T, C, E)
+        ev[1].record()
+        fbs = bd.session_mix94(scaled, rows, mixes)
+        ev[2].record()
+        words = tf.transform94_pcm(fbs, vols, sid, tabs)
+        ev[3].record()
+        pcm16 = pipeline.to_int16(words)
+        ev[4].record()
+        torch.cuda.synchronize()
+        if rep:
+            for k, a, b in zip(names, ev, ev[1:]):
+                spans[k].append(a.elapsed_time(b))
+    if not np.array_equal(pcm16.reshape(S, -1).cpu().numpy(), got):
+        raise AssertionError("session span run != served batch")
+    smean = {k: sum(v) / len(v) for k, v in spans.items()}
+    del rows, mixes, vols, fbs, words
+    # the host's side of one batch: the native trace + wire, and the
+    # enqueue of upload, kernels and the fetch (no synchronise inside)
+    trace_ms = []
+    for k in range(3):
+        t0 = time.perf_counter()
+        srv.prepare([session_events(S * (k + 1) + b) for b in range(S)])
+        trace_ms.append((time.perf_counter() - t0) * 1e3)
+    enq_ms = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        done, _ = srv._enqueue(wire_np, E)
+        enq_ms.append((time.perf_counter() - t0) * 1e3)
+        done.synchronize()
+    # the wire's upload from pinned and from pageable memory (the server
+    # uploads from pageable), host clock to a synchronise
+    wire_host = torch.from_numpy(wire_np)
+    up_ms = {}
+    for name, up in (("pinned", lambda: wire_host.pin_memory().to(
+            dev, non_blocking=True)), ("pageable", lambda: wire_host.to(dev))):
+        ts_up = []
+        for _ in range(21):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            up()
+            torch.cuda.synchronize()
+            ts_up.append((time.perf_counter() - t0) * 1e3)
+        up_ms[name] = sum(ts_up[1:]) / 20
+    # the PCM fetch, into pinned and into pageable host memory
+    pinned = torch.empty(pcm16.shape, dtype=pcm16.dtype, pin_memory=True)
+    fetch_pinned = _time_ms(lambda: pinned.copy_(pcm16, non_blocking=True),
+                            5, torch)
+    fetch_pageable = _time_ms(lambda: pcm16.cpu(), 5, torch)
+    del pinned
+    # serving: 8 batches of distinct sessions, after 3 that warm the
+    # pinned-memory cache; the rate is all 8 batches' audio over the time
+    # from the call to the last arrival (the pipeline's fill included), and
+    # a batch's latency runs from the start of its trace to its arrival
+    n_batches = 8
+    batches = [[session_events(S * k + b) for b in range(S)]
+               for k in range(n_batches + 3)]
+    for _ in srv.serve(batches[:3]):
+        pass
+    prepare, starts = srv.prepare, []
+
+    def timed_prepare(events_list):
+        starts.append(time.perf_counter())
+        return prepare(events_list)
+
+    srv.prepare = timed_prepare
+    t_call = time.perf_counter()
+    ts = []
+    for out_b in srv.serve(batches[3:]):
+        ts.append(time.perf_counter())
+    srv.prepare = prepare
+    if len(ts) != n_batches or out_b.shape != (S, T * 240):
+        raise AssertionError(f"serve(): {len(ts)} batches, {out_b.shape}")
+    serve_x = n_batches * session_audio_s / (ts[-1] - t_call)
+    gaps = [1e3 * (b - a) for a, b in zip([t_call] + ts, ts)]
+    latency = [1e3 * (t - a) for a, t in zip(starts, ts)]
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    srv.decode_wire(wire, E)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    srv.close()
+    print(f"phase 9 sessions: device time of one batch {batch_ms:.4f} ms = "
+          f"{session_audio_s / (batch_ms / 1e3):.1f}x realtime; spans (ms, "
+          f"mean of 3) " + ", ".join(f"{k} {v:.4f}" for k, v in smean.items())
+          + f", sum {sum(smean.values()):.4f}; serve() over {n_batches} "
+          f"batches {serve_x:.1f}x realtime (ms from the call to the first "
+          f"arrival, then between arrivals: "
+          + ", ".join(f"{g:.1f}" for g in gaps) + "; latency from the start "
+          "of the trace ms: " + ", ".join(f"{a:.1f}" for a in latency)
+          + f"); native trace + wire "
+          f"of one batch {sum(trace_ms) / 3:.2f} ms (min {min(trace_ms):.2f},"
+          f" max {max(trace_ms):.2f}); host enqueue of one batch "
+          f"{sum(enq_ms) / 5:.3f} ms (min {min(enq_ms):.3f}, max "
+          f"{max(enq_ms):.3f}); wire upload {wire_np.size} B: pinned "
+          f"{up_ms['pinned']:.3f} ms, pageable {up_ms['pageable']:.3f} ms; "
+          f"PCM fetch {pcm16.numel() * 2 / 1e6:.1f} MB: "
+          f"pinned {fetch_pinned:.3f} ms, pageable {fetch_pageable:.3f} ms; "
+          f"peak memory of one batch {peak / 2**30:.3f} GiB "
+          f"({(peak - base) / 2**30:.3f} GiB above the resident bank and "
+          f"inputs); E {E}")
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

@@ -57,6 +57,15 @@
 //   buffer and writes them as one 16-byte store, so a warp writes a frame's
 //   896 body bytes contiguously and 4 threads its 64 head bytes.
 //
+// - Carried state (the session path; overlap_resolve_planar_state,
+//   dcsexplorer_tpu/ops/transform.py:352-376): with overlap0 [G, 16], a
+//   run's first frame blends with overlap0[sid] instead of zeros, and the
+//   last frame of each run writes its tail, 4 int4s from the tails buffer,
+//   to last_ov[sid].  Both are in the interleaved 16-slot order (re, im of
+//   each saved pair), which is the order the tails buffer already holds.
+//   The carry is a template argument: with overlap0 null (the flat sweep)
+//   the launch runs an instance compiled without the carry's code.
+//
 // Semantics kept exactly (and tested against the plain version): the MAC
 // rounding quirk keys on the second product; volume shifts clamp to 31;
 // the blend runs in uint32 and keeps bits 16..31 (each doubled product can
@@ -106,6 +115,7 @@ __device__ __forceinline__ void radix4(int (&r)[4], int (&i)[4], int g,
     dcs::butterfly(r[2], i[2], r[3], i[3], w1.x, w1.y);
 }
 
+template <bool kCarry>
 __global__ void __launch_bounds__(kThreads, 4)
 transform94_pcm_kernel(const int *__restrict__ fb, const int *__restrict__ vol,
                        const int *__restrict__ sid,
@@ -117,6 +127,8 @@ transform94_pcm_kernel(const int *__restrict__ fb, const int *__restrict__ vol,
                        const int *__restrict__ ovl_old,
                        const int *__restrict__ ext_half,
                        const int *__restrict__ save_half,
+                       const int *__restrict__ overlap0,
+                       int *__restrict__ last_ov, int n_groups,
                        int *__restrict__ pcm, int n_frames) {
     // per warp: two exchange buffers of re[128] | im[128]; buffer 1 also
     // holds the pre-pass results fx[64], fy[64] (int2 each)
@@ -258,7 +270,15 @@ transform94_pcm_kernel(const int *__restrict__ fb, const int *__restrict__ vol,
         }
         if (lane < 4) {
             const int a = tb.save[2 * lane], b = tb.save[2 * lane + 1];
-            tails[s][lane] = make_int4(re0[a], im0[a], re0[b], im0[b]);
+            const int4 tail = make_int4(re0[a], im0[a], re0[b], im0[b]);
+            tails[s][lane] = tail;
+            // the carried state out: the tail of each run's last frame
+            if (kCarry && s > 0 &&
+                (f + 1 == n_frames || sid[f + 1] != sid[f])) {
+                const int g = sid[f];
+                if ((unsigned)g >= (unsigned)n_groups) __trap();
+                reinterpret_cast<int4 *>(last_ov)[4 * g + lane] = tail;
+            }
         }
     }
     __syncthreads();
@@ -267,9 +287,16 @@ transform94_pcm_kernel(const int *__restrict__ fb, const int *__restrict__ vol,
     const int t = threadIdx.x >> 2, j = threadIdx.x & 3;
     const int f = f0 + t;
     if (f < n_frames) {
-        const bool carry = f > 0 && sid[f] == sid[f - 1];
+        const int g = sid[f];
+        const bool carry = f > 0 && g == sid[f - 1];
         const int4 h = heads[t][j];
-        const int4 p = carry ? tails[t][j] : make_int4(0, 0, 0, 0);
+        int4 p = make_int4(0, 0, 0, 0);
+        if (carry) {
+            p = tails[t][j];
+        } else if (kCarry) {
+            if ((unsigned)g >= (unsigned)n_groups) __trap();
+            p = reinterpret_cast<const int4 *>(overlap0)[4 * g + j];
+        }
         const int4 cn = tb.cn[j], co = tb.co[j];
         reinterpret_cast<int4 *>(pcm + (size_t)f * kPcmWords)[j] =
             make_int4(dcs::overlap_mix(h.x, p.x, cn.x, co.x),
@@ -286,11 +313,20 @@ extern "C" int dcs_transform94_pcm(const int *fb, const int *vol_shift,
                                    const int *p2_c1, const int *cos_tab,
                                    const int *sin_tab, const int *ovl_new,
                                    const int *ovl_old, const int *ext_half,
-                                   const int *save_half, int *pcm,
-                                   int n_frames, cudaStream_t stream) {
+                                   const int *save_half,
+                                   const int *overlap0, int *last_ov,
+                                   int n_groups, int *pcm, int n_frames,
+                                   cudaStream_t stream) {
+    // overlap0 and last_ov are both given (the session path) or both null
     const int blocks = (n_frames + kTile - 1) / kTile;
-    transform94_pcm_kernel<<<blocks, kThreads, 0, stream>>>(
-        fb, vol_shift, sid, p2_c0, p2_c1, cos_tab, sin_tab, ovl_new, ovl_old,
-        ext_half, save_half, pcm, n_frames);
+    if (overlap0 != nullptr)
+        transform94_pcm_kernel<true><<<blocks, kThreads, 0, stream>>>(
+            fb, vol_shift, sid, p2_c0, p2_c1, cos_tab, sin_tab, ovl_new,
+            ovl_old, ext_half, save_half, overlap0, last_ov, n_groups, pcm,
+            n_frames);
+    else
+        transform94_pcm_kernel<false><<<blocks, kThreads, 0, stream>>>(
+            fb, vol_shift, sid, p2_c0, p2_c1, cos_tab, sin_tab, ovl_new,
+            ovl_old, ext_half, save_half, nullptr, nullptr, 0, pcm, n_frames);
     return (int)cudaGetLastError();
 }

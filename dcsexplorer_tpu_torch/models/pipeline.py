@@ -1,0 +1,228 @@
+"""Session decode pipeline (1994+ family): host VM control + device numerics.
+
+Counterpart of ``dcsexplorer_tpu/models/pipeline.py``.  The branchy runtime
+(track byte-code VM, command queue, mixer fades, volume) runs on the host as
+a control tracer that skips all per-sample math and emits per-frame control
+vectors: which bank row plays on which channel at what mixing multiplier,
+plus the global volume shift.  The device then runs the numerics for all
+frames at once:
+
+    bank (once per ROM):  decode94_bank -> scaled rows [R, 256]
+    per session batch:    session_mix94 (the channels' multi-voice
+                          dequant/mix) -> transform94_pcm (with a carried
+                          overlap state where the caller gives one) -> PCM
+
+``StreamBank`` decodes every stream a ROM's tracks play once, into
+mix-independent rows (row 0 silent); ``SessionDecoder`` is the device half
+as an ``nn.Module`` whose buffers are the codec tables and the bank's rows.
+On CUDA tensors each stage is a hand-written kernel (``ops/kernels.py``); on
+CPU tensors, or with ``plain=True``, their plain PyTorch versions run.  The
+entry points run on the card unless the caller names another device.
+Bit-exact with the JAX reference and the scalar decoder.
+
+The 1993 family (``device_decode93``, ``StreamBank._build93``) is not ported
+yet (ROADMAP.md §1 item 6).
+"""
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..ops import band_decode as bd
+from ..ops import prescan
+from ..ops import transform as tf
+from ..refdec import decoder as rd
+from ..vm.tracer import ControlTracer
+from .flatsweep import _device, codec_tables
+
+
+class StreamBank:
+    """Prescanned + device-decoded streams: every registered stream frame
+    becomes one row of ``scaled`` [R, 256] (u16 storage in int16; row 0 is
+    the silent dummy), indexed by ``offsets[key] + frame``."""
+
+    def __init__(self, os_version):
+        if os_version in (rd.OS93A, rd.OS93B):
+            raise NotImplementedError(
+                "1993-family session banks are not ported yet "
+                "(ROADMAP.md §1 item 6)")
+        self.os_version = os_version
+        self.keys = {}
+        self._streams = []
+
+    def add(self, mem, pos=0):
+        """Register the stream whose header starts at ``mem[pos]``; returns
+        its key (id(mem), pos)."""
+        key = (id(mem), pos)
+        if key in self.keys:
+            return key
+        idx = prescan.prescan94(mem, pos)
+        if idx.error_frame >= 0:
+            raise ValueError(f"stream error at frame {idx.error_frame}")
+        data_end = int(idx.end_bit[-1] // 8 + 8) if idx.n_frames else pos + 18
+        raw = bytes(mem[pos:data_end + 4]) + b"\xff" * 8
+        self.keys[key] = len(self._streams)
+        self._streams.append((idx, raw, pos))
+        return key
+
+    def columns(self):
+        """The bank's compact decode columns (numpy): pool_u8, sid,
+        start_bit, bt_u8, hdr_tab, fmt_tab, sub_tab, n_steps; and sets
+        ``offsets`` (key -> first row).  The streams' bytes concatenate into
+        one pool with per-frame global bit offsets, as the reference's bank
+        lays them out."""
+        offsets = {}
+        pool = []
+        n_pool = 0
+        cols = []
+        total = 1                     # row 0 is the silent dummy row
+        n_steps = 8
+        for key, si in self.keys.items():
+            idx, raw, pos = self._streams[si]
+            F = idx.n_frames
+            rel_start = idx.start_bit.astype(np.int64) - pos * 8
+            cols.append(dict(
+                sid=np.full(F, si, np.int32),
+                start_bit=(n_pool * 8 + rel_start).astype(np.int32),
+                bt=np.asarray(idx.band_type, np.int64).reshape(F, 16),
+                hdr=np.asarray(idx.header, np.int64),
+                fmt=int(idx.fmt_type), sub=int(idx.sub_type)))
+            pool.append(raw)
+            n_pool += len(raw)
+            if F:
+                n_steps = max(n_steps,
+                              min(256, (int(prescan.scan_totals(idx).max())
+                                        + 7) & ~7))
+            offsets[key] = total
+            total += F
+        pool.append(b"\xff" * 8)
+        cat = lambda k, shape: (np.concatenate([c[k] for c in cols])
+                                if cols else np.zeros(shape, np.int64))
+        bt = cat("bt", (0, 16))
+        if bt.size and (bt.min() < 0 or bt.max() > 255):
+            raise ValueError("band types exceed uint8")
+        self.offsets = offsets
+        return dict(
+            pool_u8=np.frombuffer(b"".join(pool), np.uint8),
+            sid=cat("sid", 0).astype(np.int32),
+            start_bit=cat("start_bit", 0).astype(np.int32),
+            bt_u8=bt.astype(np.uint8),
+            hdr_tab=np.asarray([c["hdr"] for c in cols], np.uint8)
+            .reshape(-1, 16),
+            fmt_tab=np.asarray([c["fmt"] for c in cols], np.uint8),
+            sub_tab=np.asarray([c["sub"] for c in cols], np.uint8),
+            n_steps=n_steps)
+
+    def decode_all(self, device="cuda"):
+        """Decode every registered stream on ``device`` (the card unless
+        given) into ``scaled`` [R, 256]: one decode94_bank launch on a card.
+        The rows stay on the device."""
+        dev = _device(device)
+        cols = self.columns()
+        n_steps = cols.pop("n_steps")
+        args = {k: torch.tensor(v, device=dev) for k, v in cols.items()}
+        tabs = {k: t.to(dev) for k, t in codec_tables().items()}
+        self.scaled = bd.decode94_bank(**args, n_steps=n_steps, tabs=tabs)
+        self.device = dev
+        return self
+
+    def total_rows(self):
+        """Number of rows (incl. the silent dummy row 0)."""
+        return 1 + sum(
+            self._streams[si][0].n_frames for si in self.keys.values())
+
+
+class SessionDecoder(nn.Module):
+    """The device half of the session path.  Buffers: the codec tables
+    (codec_tables) and the bank's rows (``scaled``), on ``device`` (the
+    bank's unless given).  ``plain=True`` runs the plain PyTorch versions of
+    the kernels on any device (the comparison path)."""
+
+    def __init__(self, bank, device=None, plain=False):
+        super().__init__()
+        self.plain = plain
+        dev = bank.device if device is None else _device(device)
+        for name, t in codec_tables().items():
+            self.register_buffer(name, t.to(dev))
+        self.register_buffer("scaled", bank.scaled.to(dev))
+
+    def forward(self, rows, mix, vol_shift, sid, overlap0=None):
+        """rows/mix [F, C] int32 (bank row and mixing multiplier per frame
+        and channel), vol_shift [F] int32, sid [F] int32 (each frame's
+        session; one run of frames each), overlap0 [G, 16] int32 carried
+        state per session, or None for a zero state.  Returns pcm [F, 240]
+        without overlap0, (pcm, last_ov [G, 16]) with it; int32, u16
+        storage."""
+        mixer = bd.session_mix94_plain if self.plain else bd.session_mix94
+        to_pcm = tf.transform94_pcm_plain if self.plain \
+            else tf.transform94_pcm
+        fb = mixer(self.scaled, rows, mix)
+        return to_pcm(fb, vol_shift, sid, dict(self.named_buffers()),
+                      overlap0)
+
+
+def assemble_controls(tracer: ControlTracer, bank: StreamBank):
+    """Convert the VM trace into dense control arrays.
+
+    Returns (rows [T, 8] bank row per channel (0 = silent),
+             mix [T, 8], vol_shift [T]), int32 numpy."""
+    T_ = len(tracer.trace_vol_shift)
+    rows = np.zeros((T_, rd.MAX_CHANNELS), dtype=np.int32)
+    mix = np.zeros((T_, rd.MAX_CHANNELS), dtype=np.int32)
+    for t, entries in enumerate(tracer.trace_entries):
+        for (c, key, fidx, m) in entries:
+            rows[t, c] = bank.offsets[key] + fidx
+            mix[t, c] = m
+    vol = np.asarray(tracer.trace_vol_shift, dtype=np.int32)
+    return rows, mix, vol
+
+
+def device_decode(decoder, rows, mix, vol_shift, overlap0=None):
+    """Decode T frames of one session on the decoder's device; bit-exact
+    with the scalar decoder.
+
+    rows/mix [T, C] (C <= 8), vol_shift [T], overlap0 [16] carried state
+    (zeros when None); numpy or tensors.  Returns (pcm [T, 240], last_ov
+    [16]) int32 tensors, u16 storage."""
+    dev = decoder.scaled.device
+    as_t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
+    rows, mix, vol_shift = as_t(rows), as_t(mix), as_t(vol_shift)
+    ov = (torch.zeros((1, 16), dtype=torch.int32, device=dev)
+          if overlap0 is None else as_t(overlap0).reshape(1, 16))
+    sid = torch.zeros(rows.shape[0], dtype=torch.int32, device=dev)
+    pcm, last_ov = decoder(rows, mix, vol_shift, sid, ov)
+    return pcm, last_ov[0]
+
+
+def to_int16(pcm):
+    """u16-storage words (int32, 0..$FFFF) -> int16 PCM, on the words'
+    device, in one pass: the narrowing cast keeps the low 16 bits (two's
+    complement), which is the signed sample."""
+    return pcm.to(torch.int16)
+
+
+def decode_standalone(streams, os_version=rd.OS94, default_volume=0x67,
+                      n_frames=None, events=None, device="cuda"):
+    """End-to-end standalone decode on ``device`` (the card unless given).
+
+    streams: list of (mem, channel, mixing_level) loaded at frame 0.
+    Returns int16 PCM [n_frames * 240] (numpy)."""
+    bank = StreamBank(os_version)
+    for (mem, _, _) in streams:
+        bank.add(mem, 0)
+    bank.decode_all(device)
+
+    tracer = ControlTracer()
+    tracer.default_volume = default_volume
+    tracer.init_standalone(os_version)
+    tracer.soft_boot()
+    for (mem, ch, lvl) in streams:
+        tracer.load_audio_stream(ch, mem, mixing_level=lvl)
+    if n_frames is None:
+        n_frames = 4 + max(prescan.prescan94(mem, 0).n_frames
+                           for (mem, _, _) in streams)
+    tracer.trace_frames(n_frames, events=events)
+
+    rows, mix, vol = assemble_controls(tracer, bank)
+    pcm, _ = device_decode(SessionDecoder(bank), rows, mix, vol)
+    return to_int16(pcm).reshape(-1).cpu().numpy()

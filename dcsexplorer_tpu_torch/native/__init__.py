@@ -31,8 +31,14 @@ _SIGNATURES = {
     "dcstr_add_chip": (None, [_P, _I, C.c_char_p, C.c_int64]),
     "dcstr_set_catalog": (None, [_P, C.c_int64, C.c_int64, _I, _I]),
     "dcstr_soft_boot": (None, [_P]),
+    "dcstr_full_reset": (None, [_P]),
     "dcstr_load_stream": (None, [_P, _I, C.c_uint, _I, _I]),
+    "dcstr_write_port": (None, [_P, _I]),
     "dcstr_trace": (C.c_int, [_P, _I, _P, _P, _I] + [_P] * 4),
+    "dcstr_trace_segs": (C.c_int, [_P, _I, _P, _P, _I, _P, _P, _I, _I, _I]
+                         + [_P] * 5),
+    "dcstr_trace_segs_batch": (C.c_int, [_P, _I, _I, _P, _P, _P, _P, _P, _I,
+                                         _I, _I] + [_P] * 5),
 }
 
 _lib = None

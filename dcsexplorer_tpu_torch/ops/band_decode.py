@@ -23,6 +23,13 @@ buffers out.  Its plain version chains the five stages above; its CUDA
 kernel ``csrc/decode94_fb.cu`` builds the band controls in registers and
 writes the frame buffers directly, so no per-position tensor exists.
 
+The session path splits that decode in two.  ``decode94_bank`` decodes a
+ROM's streams once into mix-independent rows of dequantized samples, one
+per stream frame (``csrc/decode94_bank.cu``, the same walk);
+``session_mix94`` folds each output frame's voices, up to 8 bank rows at
+their mixing multipliers, into a frame buffer with the Pallas kernel's
+arithmetic (``csrc/session_mix94.cu``).
+
 Each kernel has its plain PyTorch version here (``*_plain``).  The public
 function takes the plain version for CPU tensors and launches the kernel for
 CUDA tensors (``ops/kernels.py`` raises on anything else).
@@ -212,42 +219,64 @@ def decode94_symbols_plain(pool_u8, start_bit, packed, n_steps, cb_flat):
     return out
 
 
-def dequant_mix_plain(pos_vals, slot_ctl, mix, fb_prev=None):
+def _scaled(pos_vals, scale, total, active=None):
+    """The dequantized samples (u16 storage): s16(value) * u16(scale),
+    zero at and past each frame's position count and in frames where the
+    voice is not active."""
+    S = pos_vals.shape[1]
+    pos = torch.arange(S, device=pos_vals.device).reshape(1, S)
+    valid = pos < total.long()[:, None]
+    if active is not None:
+        valid = valid & active[:, None]
+    scaled = (s16(pos_vals) * (scale.long() & M16)) & M16
+    return torch.where(valid, scaled, 0)
+
+
+def _mix_voice(fb, scaled, mix):
+    """Accumulate one voice into frame buffers fb [F, 512] (int64, in
+    place): scaled [F, S] samples (u16 storage) for positions 1..S at
+    mixing multiplier mix [F], then the saturating first-sample delta
+    fix-up of words 0 and 1 (reference: DCSDecoderNative.cpp:2244-2257).
+    A zero scaled word passes its accumulator word through exactly, and an
+    all-zero row leaves words 0 and 1 as they were: a silent voice needs
+    no mask."""
+    S = scaled.shape[1]
+    mixprod = s16(scaled) * (mix.long()[:, None] & M16)
+    new_val = ((((s16(fb[:, 1:1 + S]) << 16) | scaled) + mixprod)
+               >> 16) & M16
+    outbuf1 = fb[:, 1].clone()
+    fb[:, 1:1 + S] = new_val
+    delta = sat16(s16(new_val[:, 0]) - s16(outbuf1))
+    fb[:, 0] = sat16(s16(delta) + s16(fb[:, 0]))
+    fb[:, 1] = outbuf1
+
+
+def dequant_mix_plain(pos_vals, slot_ctl, mix, fb_prev=None, active=None):
     """Plain version of the dequant/mix kernel (single-voice form).
 
     pos_vals [F, S]: sample for frame-buffer position p+1 at column p.
     slot_ctl: (scale [F, S], total [F]); mix [F] mixing multiplier;
-    fb_prev [F, 512] prior frame buffers, or None for silence.
+    fb_prev [F, 512] prior frame buffers, or None for silence; active [F]
+    bool, the frames where this voice plays (None: all).
     Returns frame buffers [F, 512] int32 (u16 storage): the exact
     accumulate of each scaled sample into its word, then the saturating
     first-sample delta fix-up of words 0 and 1
     (reference: band_decode.dequant_mix, DCSDecoderNative.cpp:2244-2257).
     """
     scale, total = slot_ctl
-    F, S = pos_vals.shape
-    dev = pos_vals.device
-    pos = torch.arange(S, device=dev).reshape(1, S)
-    scaled = (s16(pos_vals) * (scale.long() & M16)) & M16
-    scaled = torch.where(pos < total.long()[:, None], scaled, 0)
-    mixprod = s16(scaled) * (mix.long()[:, None] & M16)
+    F = pos_vals.shape[0]
     if fb_prev is None:
-        fb = torch.zeros((F, 512), dtype=torch.long, device=dev)
-        new_val = ((scaled + mixprod) >> 16) & M16
+        fb = torch.zeros((F, 512), dtype=torch.long, device=pos_vals.device)
     else:
         fb = fb_prev.long().clone()
-        new_val = ((((s16(fb[:, 1:1 + S]) << 16) | scaled) + mixprod)
-                   >> 16) & M16
-    outbuf1 = fb[:, 1].clone()
-    fb[:, 1:1 + S] = new_val
-    delta = sat16(s16(new_val[:, 0]) - s16(outbuf1))
-    fb[:, 0] = sat16(s16(delta) + s16(fb[:, 0]))
-    fb[:, 1] = outbuf1
+    _mix_voice(fb, _scaled(pos_vals, scale, total, active), mix)
     return fb.int()
 
 
 def dequant_mix(pos_vals, slot_ctl, mix, fb_prev=None):
-    """Dequant/mix (see dequant_mix_plain): plain version for CPU tensors,
-    the CUDA kernel for CUDA tensors."""
+    """Dequant/mix (see dequant_mix_plain; the kernel is its single-voice
+    form, without ``active``): plain version for CPU tensors, the CUDA
+    kernel for CUDA tensors."""
     if pos_vals.device.type == "cpu":
         return dequant_mix_plain(pos_vals, slot_ctl, mix, fb_prev)
     scale, total = slot_ctl
@@ -284,3 +313,62 @@ def decode94_fb(pool_u8, sid, start_bit, bt_u8, mix, hdr_tab, fmt_tab,
                                  hdr_tab, fmt_tab, sub_tab, n_steps, tabs)
     return kernels.decode94_fb(pool_u8, sid, start_bit, bt_u8, mix, hdr_tab,
                                fmt_tab, sub_tab, n_steps, tabs)
+
+
+def decode94_bank_plain(pool_u8, sid, start_bit, bt_u8, hdr_tab, fmt_tab,
+                        sub_tab, n_steps, tabs):
+    """Plain version of the decode94_bank kernel: a session bank's decode,
+    mix-independent, one row per stream frame.
+
+    The compact columns of decode94_fb_plain without the mix (N frames of
+    S streams).  Returns scaled [N + 1, 256] int16 holding u16 storage:
+    row 0 is the silent dummy (all zero), row 1 + f is frame f's
+    (s16(value) * u16(scale)) & $FFFF per position, zero at and past the
+    frame's position count.  That row is all that dequant/mix reads of a
+    frame (session_mix94_plain)."""
+    header, fmt, sub, bt, btp, _ = unpack_columns(sid, bt_u8, hdr_tab,
+                                                  fmt_tab, sub_tab)
+    packed, scale, total = slot_controls(
+        band_controls_dyn(header, fmt, sub, bt, btp, tabs), tabs)
+    vals = decode94_symbols_plain(pool_u8, start_bit, packed, n_steps,
+                                  tabs["cb_flat"])
+    out = torch.zeros((sid.shape[0] + 1, 256), dtype=torch.int16,
+                      device=pool_u8.device)
+    out[1:] = s16(_scaled(vals, scale, total)).to(torch.int16)
+    return out
+
+
+def decode94_bank(pool_u8, sid, start_bit, bt_u8, hdr_tab, fmt_tab, sub_tab,
+                  n_steps, tabs):
+    """A bank's rows (see decode94_bank_plain): plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors."""
+    if pool_u8.device.type == "cpu":
+        return decode94_bank_plain(pool_u8, sid, start_bit, bt_u8, hdr_tab,
+                                   fmt_tab, sub_tab, n_steps, tabs)
+    return kernels.decode94_bank(pool_u8, sid, start_bit, bt_u8, hdr_tab,
+                                 fmt_tab, sub_tab, n_steps, tabs)
+
+
+def session_mix94_plain(scaled, rows, mix):
+    """Plain version of the session_mix94 kernel: the session path's
+    multi-voice dequant/mix (pipeline.device_decode's channel loop).
+
+    scaled [R, 256] int16 bank rows (decode94_bank); rows [F, C] int32
+    bank row per frame and channel (0: silent); mix [F, C] int32 mixing
+    multipliers.  Each frame starts from silence and folds channels
+    0..C-1 in order.  Returns frame buffers [F, 512] int32 (u16 storage),
+    zero past word 256."""
+    F = rows.shape[0]
+    bank = scaled.long() & M16
+    fb = torch.zeros((F, 512), dtype=torch.long, device=rows.device)
+    for c in range(rows.shape[1]):
+        _mix_voice(fb, bank[rows[:, c].long()], mix[:, c])
+    return fb.int()
+
+
+def session_mix94(scaled, rows, mix):
+    """Multi-voice dequant/mix (see session_mix94_plain): plain version for
+    CPU tensors, the CUDA kernel for CUDA tensors."""
+    if scaled.device.type == "cpu":
+        return session_mix94_plain(scaled, rows, mix)
+    return kernels.session_mix94(scaled, rows, mix)

@@ -1,9 +1,10 @@
 """Build, bind and launch the hand-written CUDA kernels (``csrc/*.cu``).
 
 At first use, nvcc compiles every source of ``csrc/`` for Hopper
-(``sm_90a``) into one shared library with a plain C interface,
-``build/torch_kernels/libdcs_torch.so``, and rebuilds it when a source is
-newer than the library.  ctypes loads it; each C entry launches one kernel
+(``sm_90a``), one process per source, all at once, and links the objects
+into one shared library with a plain C interface,
+``build/torch_kernels/libdcs_torch.so``; it rebuilds when a source is newer
+than the library.  ctypes loads it; each C entry launches one kernel
 on the caller's stream and returns ``cudaGetLastError()``.
 
 Each wrapper checks device, dtype, shape and contiguity, allocates its
@@ -25,16 +26,20 @@ import torch
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO = os.path.dirname(_PKG)
 CSRC = os.path.join(_PKG, "csrc")
-SOURCES = ("decode94_fb.cu", "dequant_mix.cu", "transform94.cu",
+SOURCES = ("decode94_fb.cu", "decode94_bank.cu", "dequant_mix.cu",
+           "segments94.cu", "session_mix94.cu", "transform94.cu",
            "transform94_pcm.cu")
-HEADERS = ("dcs_fixmath.cuh",)
+HEADERS = ("dcs_fixmath.cuh", "decode94_walk.cuh")
 LIB_PATH = os.path.join(_REPO, "build", "torch_kernels", "libdcs_torch.so")
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
+              "-v")
 
 # launches per kernel; each wrapper adds one where it launches its kernel
-LAUNCHES = {"decode94_fb": 0, "dequant_mix": 0, "transform94_planar": 0,
-            "transform94_pcm": 0}
+# (transform94_pcm_carry: transform94_pcm's instance with a carried state)
+LAUNCHES = {"decode94_fb": 0, "decode94_bank": 0, "dequant_mix": 0,
+            "segments94": 0, "session_mix94": 0, "transform94_planar": 0,
+            "transform94_pcm": 0, "transform94_pcm_carry": 0}
 
 # frames per block of csrc/transform94_pcm.cu (its kTile): a block
 # transforms the frame before its tile again for the overlap carry
@@ -49,13 +54,22 @@ _SIGNATURES = {
     # n_steps, stream
     "dcs_decode94_fb": [_P, _LL, _P, _P, _P, _P, _P, _P, _P, _I,
                         *[_P] * 8, _P, _I, _I, _P],
+    # pool, pool_len, sid, start_bit, bt_u8, hdr_tab, fmt_tab, sub_tab,
+    # n_streams, tables (_FB_TABLES order), out, n_frames, n_steps, stream
+    "dcs_decode94_bank": [_P, _LL, _P, _P, _P, _P, _P, _P, _I,
+                          *[_P] * 8, _P, _I, _I, _P],
+    # wire, n_sessions, n_frames, n_ch, n_seg, rows, mix, vol, stream
+    "dcs_segments94": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # bank, n_rows, rows, mix, out, n_frames, n_ch, stream
+    "dcs_session_mix94": [_P, _I, _P, _P, _P, _I, _I, _P],
     # pos_vals, scale, total, mix, fb_prev (nullable), out,
     # n_frames, n_slots, stream
     "dcs_dequant_mix": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
     # fb, vol_shift, p2_c0, p2_c1, cos, sin, out_re, out_im, n_frames, stream
     "dcs_transform94_planar": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
-    # fb, vol_shift, sid, tables (_PCM_TABLES order), pcm, n_frames, stream
-    "dcs_transform94_pcm": [_P, _P, _P, *[_P] * 8, _P, _I, _P],
+    # fb, vol_shift, sid, tables (_PCM_TABLES order), overlap0 (nullable),
+    # last_ov (nullable), n_groups, pcm, n_frames, stream
+    "dcs_transform94_pcm": [_P, _P, _P, *[_P] * 8, _P, _P, _I, _P, _I, _P],
 }
 
 
@@ -68,21 +82,44 @@ def _nvcc():
 
 def build():
     """Compile csrc/ into LIB_PATH unless the library is newer than every
-    source.  Returns nvcc's report (ptxas registers and shared memory per
-    kernel), or "" when the library was up to date.  Raises on failure."""
+    source: one nvcc per source, run in parallel, then one link.  Returns
+    nvcc's report (ptxas registers and shared memory per kernel), or ""
+    when the library was up to date.  Raises on failure."""
     srcs = [os.path.join(CSRC, f) for f in SOURCES]
     deps = srcs + [os.path.join(CSRC, f) for f in HEADERS]
     if (os.path.exists(LIB_PATH)
             and os.path.getmtime(LIB_PATH) >= max(map(os.path.getmtime, deps))):
         return ""
     os.makedirs(os.path.dirname(LIB_PATH), exist_ok=True)
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", tmp, *srcs],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({r.returncode}):\n{r.stderr}")
-    os.replace(tmp, LIB_PATH)
-    return r.stdout + r.stderr
+    nvcc = _nvcc()
+    tag = f"{os.getpid()}.tmp"
+    objs = [f"{LIB_PATH[:-3]}_{os.path.basename(src)[:-3]}.{tag}.o"
+            for src in srcs]
+    procs = [subprocess.Popen([nvcc, *NVCC_FLAGS, "-c", src, "-o", obj],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True)
+             for src, obj in zip(srcs, objs)]
+    report, failed = [], []
+    for src, p in zip(srcs, procs):
+        out, _ = p.communicate()
+        report.append(out)
+        if p.returncode != 0:
+            failed.append(f"{os.path.basename(src)} ({p.returncode}):\n{out}")
+    try:
+        if failed:
+            raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        tmp = f"{LIB_PATH}.{tag}"
+        r = subprocess.run([nvcc, *ARCH, "-shared", "-o", tmp, *objs],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({r.returncode}):\n"
+                               f"{r.stderr}")
+        os.replace(tmp, LIB_PATH)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
+    return "".join(report)
 
 
 def load():
@@ -122,16 +159,17 @@ def _launch(kernel, c_name, device, *args):
     LAUNCHES[kernel] += 1
 
 
-# the codec tables decode94_fb reads, in the order of its C arguments
+# the codec tables decode94_fb and decode94_bank read, in the order of their
+# C arguments
 _FB_TABLES = (("out_count", (16,)), ("xt_by_band", (16, 16)),
               ("xa_by_band", (16, 16)), ("preadj", (2, 16)), ("maxw", (7,)),
               ("cb_base", (7,)), ("scale_mant", (4,)), ("cb_flat", (940,)))
 
 
-def decode94_fb(pool_u8, sid, start_bit, bt_u8, mix, hdr_tab, fmt_tab,
-                sub_tab, n_steps, tabs):
-    """Compact columns -> frame buffers on the card (csrc/decode94_fb.cu);
-    see band_decode.decode94_fb_plain for the contract."""
+def _check_columns(pool_u8, sid, start_bit, bt_u8, hdr_tab, fmt_tab,
+                   sub_tab, n_steps, tabs):
+    """The compact decode columns and tables of decode94_fb and
+    decode94_bank (decode94_walk.cuh's inputs)."""
     N = sid.shape[0]
     S = hdr_tab.shape[0]
     dev = pool_u8.device
@@ -139,19 +177,30 @@ def decode94_fb(pool_u8, sid, start_bit, bt_u8, mix, hdr_tab, fmt_tab,
     _check("sid", sid, torch.int32, (N,), dev)
     _check("start_bit", start_bit, torch.int32, (N,), dev)
     _check("bt_u8", bt_u8, torch.uint8, (N, 16), dev)
-    _check("mix", mix, torch.int32, (N,), dev)
     _check("hdr_tab", hdr_tab, torch.uint8, (S, 16), dev)
     _check("fmt_tab", fmt_tab, torch.uint8, (S,), dev)
     _check("sub_tab", sub_tab, torch.uint8, (S,), dev)
     for name, shape in _FB_TABLES:
         _check(name, tabs[name], torch.int32, shape, dev)
-    # the kernel loads 4-byte pool words and 16-byte header/band-type rows
+    # the walk loads 4-byte pool words and 16-byte header/band-type rows
     for name, t, align in (("pool_u8", pool_u8, 4), ("bt_u8", bt_u8, 16),
                            ("hdr_tab", hdr_tab, 16)):
         if t.data_ptr() % align:
             raise ValueError(f"{name}: not {align}-byte aligned")
     if n_steps < 0:
         raise ValueError(f"n_steps {n_steps}")
+
+
+def decode94_fb(pool_u8, sid, start_bit, bt_u8, mix, hdr_tab, fmt_tab,
+                sub_tab, n_steps, tabs):
+    """Compact columns -> frame buffers on the card (csrc/decode94_fb.cu);
+    see band_decode.decode94_fb_plain for the contract."""
+    _check_columns(pool_u8, sid, start_bit, bt_u8, hdr_tab, fmt_tab, sub_tab,
+                   n_steps, tabs)
+    N = sid.shape[0]
+    S = hdr_tab.shape[0]
+    dev = pool_u8.device
+    _check("mix", mix, torch.int32, (N,), dev)
     out = torch.empty((N, 512), dtype=torch.int32, device=dev)
     if N:
         _launch("decode94_fb", "dcs_decode94_fb", dev,
@@ -213,10 +262,12 @@ _PCM_TABLES = (("p2_c0", 64), ("p2_c1", 64), ("cos", 128), ("sin", 128),
                ("save_half", 8))
 
 
-def transform94_pcm(fb, vol_shift, sid, tabs):
+def transform94_pcm(fb, vol_shift, sid, tabs, overlap0=None):
     """Frame buffers -> PCM on the card (csrc/transform94_pcm.cu): the
     transform, overlap resolve and extraction in one launch; see
-    transform.transform94_pcm_plain for the contract."""
+    transform.transform94_pcm_plain for the contract.  With overlap0
+    [G, 16] the carry at a run's start is overlap0[sid], and the result is
+    (pcm, last_ov [G, 16])."""
     F = fb.shape[0]
     dev = fb.device
     _check("fb", fb, torch.int32, (F, 512))
@@ -225,13 +276,90 @@ def transform94_pcm(fb, vol_shift, sid, tabs):
     for name, n in _PCM_TABLES:
         _check(name, tabs[name], torch.int32, (n,), dev)
     pcm = torch.empty((F, 240), dtype=torch.int32, device=dev)
+    aligned = [("fb", fb), ("pcm", pcm)]
+    last_ov = None
+    if overlap0 is not None:
+        _check("overlap0", overlap0, torch.int32, (overlap0.shape[0], 16),
+               dev)
+        last_ov = overlap0.clone()        # ids with no frame keep theirs
+        aligned += [("overlap0", overlap0), ("last_ov", last_ov)]
     # the kernel loads and stores 16-byte words of each row
-    for name, t in (("fb", fb), ("pcm", pcm)):
+    for name, t in aligned:
         if t.data_ptr() % 16:
             raise ValueError(f"{name}: not 16-byte aligned")
     if F:
-        _launch("transform94_pcm", "dcs_transform94_pcm", dev,
+        _launch("transform94_pcm" if overlap0 is None
+                else "transform94_pcm_carry", "dcs_transform94_pcm", dev,
                 fb.data_ptr(), vol_shift.data_ptr(), sid.data_ptr(),
                 *[tabs[name].data_ptr() for name, _ in _PCM_TABLES],
+                None if overlap0 is None else overlap0.data_ptr(),
+                None if last_ov is None else last_ov.data_ptr(),
+                0 if overlap0 is None else overlap0.shape[0],
                 pcm.data_ptr(), F)
-    return pcm
+    return pcm if overlap0 is None else (pcm, last_ov)
+
+
+def decode94_bank(pool_u8, sid, start_bit, bt_u8, hdr_tab, fmt_tab, sub_tab,
+                  n_steps, tabs):
+    """A session bank's rows on the card (csrc/decode94_bank.cu); see
+    band_decode.decode94_bank_plain for the contract."""
+    _check_columns(pool_u8, sid, start_bit, bt_u8, hdr_tab, fmt_tab, sub_tab,
+                   n_steps, tabs)
+    N = sid.shape[0]
+    S = hdr_tab.shape[0]
+    dev = pool_u8.device
+    if not N:
+        return torch.zeros((1, 256), dtype=torch.int16, device=dev)
+    out = torch.empty((N + 1, 256), dtype=torch.int16, device=dev)
+    _launch("decode94_bank", "dcs_decode94_bank", dev,
+            pool_u8.data_ptr(), pool_u8.numel(), sid.data_ptr(),
+            start_bit.data_ptr(), bt_u8.data_ptr(), hdr_tab.data_ptr(),
+            fmt_tab.data_ptr(), sub_tab.data_ptr(), S,
+            *[tabs[name].data_ptr() for name, _ in _FB_TABLES],
+            out.data_ptr(), N, min(n_steps, 256))
+    return out
+
+
+# the largest segment table: 8 channels of 255 segments
+MAX_CHANNELS, MAX_SEGMENTS = 8, 255
+
+
+def segments94(wire, S, T, C, E):
+    """The control wire -> dense rows, mix [S*T, C] and vol [S*T], int32, on
+    the card (csrc/segments94.cu); see romplay.segments94_plain for the
+    contract."""
+    if not (1 <= C <= MAX_CHANNELS and 1 <= E <= MAX_SEGMENTS):
+        raise ValueError(f"{C} channels of {E} segments; expected 1..8 "
+                         "and 1..255")
+    if not (S >= 0 and 0 <= T < 0xFFFF):
+        raise ValueError(f"{S} sessions of {T} frames")
+    dev = wire.device
+    _check("wire", wire, torch.uint8, (7 * S * C * E + S * T,))
+    rows = torch.empty((S * T, C), dtype=torch.int32, device=dev)
+    mix = torch.empty((S * T, C), dtype=torch.int32, device=dev)
+    vol = torch.empty((S * T,), dtype=torch.int32, device=dev)
+    if S and T:
+        _launch("segments94", "dcs_segments94", dev, wire.data_ptr(), S, T,
+                C, E, rows.data_ptr(), mix.data_ptr(), vol.data_ptr())
+    return rows, mix, vol
+
+
+def session_mix94(scaled, rows, mix):
+    """Multi-voice dequant/mix on the card (csrc/session_mix94.cu); see
+    band_decode.session_mix94_plain for the contract."""
+    R = scaled.shape[0]
+    F, C = rows.shape
+    dev = scaled.device
+    _check("scaled", scaled, torch.int16, (R, 256))
+    _check("rows", rows, torch.int32, (F, C), dev)
+    _check("mix", mix, torch.int32, (F, C), dev)
+    if not 1 <= C <= MAX_CHANNELS:
+        raise ValueError(f"{C} channels; expected 1..8")
+    out = torch.empty((F, 512), dtype=torch.int32, device=dev)
+    for name, t in (("scaled", scaled), ("out", out)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: not 16-byte aligned")
+    if F:
+        _launch("session_mix94", "dcs_session_mix94", dev, scaled.data_ptr(),
+                R, rows.data_ptr(), mix.data_ptr(), out.data_ptr(), F, C)
+    return out

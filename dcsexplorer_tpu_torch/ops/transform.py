@@ -8,13 +8,15 @@ saturation and the MAC's convergent-rounding quirk; the output is the
 volume-shifted complex words as two planes, re[k] = word 2k and
 im[k] = word 2k+1, in bit-reversed storage order.
 
-``transform94_pcm`` is the flat sweep's stage: the transform, the overlap
-resolve and the extraction in one, frame buffers in and PCM out.  It
-launches ``csrc/transform94_pcm.cu`` for CUDA tensors and takes
-``transform94_pcm_plain`` (the composition of the two plain stages) for CPU
-tensors.  ``transform94_planar`` launches ``csrc/transform94.cu`` likewise;
-the sessions slice needs its planes.  ``overlap_resolve_planar`` is plain
-PyTorch on every device.  The reference's
+``transform94_pcm`` is the stage of the flat sweep and of the session path:
+the transform, the overlap resolve and the extraction in one, frame buffers
+in and PCM out; on the session path it also takes each session's carried
+overlap state and returns the new one (``overlap_resolve_planar_state``).
+It launches ``csrc/transform94_pcm.cu`` for CUDA tensors and takes
+``transform94_pcm_plain`` (the composition of the plain stages) for CPU
+tensors.  ``transform94_planar`` launches ``csrc/transform94.cu`` likewise
+(no path needs its planes now).  ``overlap_resolve_planar`` and
+``overlap_resolve_planar_state`` are plain PyTorch.  The reference's
 interleaved ``transform94`` / ``transform94_raw`` are not carried over: the
 planar form is the only one the sweep runs.  Tables arrive as tensors
 (``tabs``, built by ``models/flatsweep.codec_tables``).
@@ -107,11 +109,13 @@ def transform94_planar(fb, vol_shift, tabs):
                                       tabs["p2_c1"], tabs["cos"], tabs["sin"])
 
 
-def overlap_resolve_planar(re, im, stream_start, tabs):
+def overlap_resolve_planar(re, im, stream_start, tabs, carry0=None):
     """Flat-axis overlap resolve + bit-reversed extraction.
 
     re/im [F, 128]: transform94_planar output for F flat frames;
-    stream_start [F] bool (the carried overlap resets there).
+    stream_start [F] bool (the carried overlap resets there); carry0
+    [F, 16] the carry where stream_start holds, in the interleaved 16-slot
+    order (re, im of each saved pair), or None for zeros.
     Each frame's 16 head words blend with the previous frame's 16 tail
     words.  Returns pcm [F, 240] int32 u16 storage.
     """
@@ -124,7 +128,8 @@ def overlap_resolve_planar(re, im, stream_start, tabs):
     for plane, k in ((re, 0), (im, 1)):
         tails = plane[:, save]
         carried = torch.cat([torch.zeros_like(tails[:1]), tails[:-1]], 0)
-        carried = torch.where(stream_start[:, None], 0, carried)
+        start = 0 if carry0 is None else carry0[:, k::2].long()
+        carried = torch.where(stream_start[:, None], start, carried)
         ext_plane = plane[:, ext]
         ext_plane[:, :8] = overlap_mix(plane[:, ovl], carried,
                                        cn[k::2].reshape(1, 8),
@@ -133,21 +138,54 @@ def overlap_resolve_planar(re, im, stream_start, tabs):
     return torch.stack(out, dim=-1).reshape(F, 240).int()
 
 
-def transform94_pcm_plain(fb, vol_shift, sid, tabs):
+def _tails(re, im, tabs):
+    """Each frame's unblended, volume-shifted tail [F, 16] in the
+    interleaved 16-slot order of the carried state."""
+    save = tabs["save_half"].long()
+    return torch.stack([re[:, save], im[:, save]], -1).reshape(-1, 16)
+
+
+def overlap_resolve_planar_state(re, im, overlap0, tabs):
+    """Planar overlap resolve of F consecutive frames of ONE stream with a
+    carried state: overlap0 [16] in, the last frame's tail out, both in the
+    interleaved 16-slot order.  Returns (pcm [F, 240], last_ov [16]),
+    int32 u16 storage."""
+    F = re.shape[0]
+    start = torch.zeros(F, dtype=torch.bool, device=re.device)
+    start[:1] = True
+    pcm = overlap_resolve_planar(re, im, start, tabs,
+                                 overlap0.reshape(1, 16).expand(F, 16))
+    return pcm, _tails(re, im, tabs)[-1].int()
+
+
+def transform94_pcm_plain(fb, vol_shift, sid, tabs, overlap0=None):
     """Plain version of the transform94_pcm kernel: the inverse transform,
     then the overlap resolve with the carry reset where the stream id
     changes (and at frame 0).
 
     fb [N, 512] int32 u16 storage; vol_shift [N]; sid [N].
-    Returns pcm [N, 240] int32 u16 storage."""
+    Returns pcm [N, 240] int32 u16 storage.
+
+    With overlap0 [G, 16] (the carried state of each stream id, in the
+    interleaved 16-slot order; sid < G, each id one run of frames) the
+    carry at a run's start is overlap0[sid] instead of zeros, and the
+    result is (pcm, last_ov [G, 16]): each run's last tail at its id, and
+    overlap0's row for an id with no frames."""
     re, im = transform94_planar_plain(fb, vol_shift, tabs)
-    return overlap_resolve_planar(re, im, band_decode.stream_starts(sid),
-                                  tabs)
+    starts = band_decode.stream_starts(sid)
+    if overlap0 is None:
+        return overlap_resolve_planar(re, im, starts, tabs)
+    sid = sid.long()
+    pcm = overlap_resolve_planar(re, im, starts, tabs, overlap0[sid])
+    last = torch.cat([starts[1:], starts.new_ones(1)])
+    last_ov = overlap0.clone()
+    last_ov[sid[last]] = _tails(re, im, tabs)[last].int()
+    return pcm, last_ov
 
 
-def transform94_pcm(fb, vol_shift, sid, tabs):
+def transform94_pcm(fb, vol_shift, sid, tabs, overlap0=None):
     """Frame buffers -> PCM (see transform94_pcm_plain): plain version for
     CPU tensors, the CUDA kernel for CUDA tensors."""
     if fb.device.type == "cpu":
-        return transform94_pcm_plain(fb, vol_shift, sid, tabs)
-    return kernels.transform94_pcm(fb, vol_shift, sid, tabs)
+        return transform94_pcm_plain(fb, vol_shift, sid, tabs, overlap0)
+    return kernels.transform94_pcm(fb, vol_shift, sid, tabs, overlap0)

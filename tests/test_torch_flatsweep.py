@@ -140,6 +140,11 @@ pcm = fs.FlatPipeline("cpu")(**fs.packed_to_device(sw.compact_host_arrays(),
                                                    "cpu"))
 assert pcm.shape == (sw.n_frames_total, 240)
 assert fs.reference_pcm(open(sys.argv[1], "rb").read(), 2).shape == (480,)
+from dcsexplorer_tpu_torch.models import romplay
+from dcsexplorer_tpu_torch.rom import zipload
+rs, _ = zipload.load_zip_file("dcsexplorer_tpu_torch/data/session6.zip")
+with romplay.SessionServer(rs, 2, 8, n_ch=6, device="cpu") as srv:
+    assert srv.serve_one([{0: [0, 1]}, {1: [0, 2]}]).shape == (2, 1920)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "dcsexplorer_tpu"))
 assert not bad, bad
@@ -149,13 +154,14 @@ print(len(names))
 
 def test_port_never_imports_jax():
     # a fresh interpreter: this test process has jax and the JAX package
-    # loaded.  After the port, chip_smoke and a CPU sweep, neither jax nor
-    # any module of dcsexplorer_tpu may be loaded.
+    # loaded.  After the port, chip_smoke, a CPU sweep and a served CPU
+    # session batch, neither jax nor any module of dcsexplorer_tpu may be
+    # loaded.
     paths, _ = _streams()
     r = subprocess.run([sys.executable, "-c", _NO_JAX, paths[0]], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 14      # every port module imported
+    assert int(r.stdout.split()[-1]) >= 28      # every port module imported
 
 
 # the JAX package named as a module: "dcsexplorer_tpu." or an import of it,

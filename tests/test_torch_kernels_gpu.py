@@ -12,8 +12,11 @@ streams that cross block boundaries so a frame's previous band types sit in
 another block, bit cursors running past the end of a pool whose length is
 not a multiple of 4, random prior frame buffers, saturating frame buffers
 and volume shifts past 31, stream starts at the transform-to-PCM kernel's
-tile edges.  Every comparison is bit for bit.
-chip_smoke.py covers the real catalog.
+tile edges; for the session path, bank rows over the whole u16 range,
+segment tables of 1 to 255 entries, carried overlap states with sessions
+crossing tiles, and a served batch on the card against the CPU.  Every
+comparison is bit for bit.  chip_smoke.py covers the real catalog and the
+full-width session6 batch.
 """
 
 import glob
@@ -24,14 +27,19 @@ import pytest
 import torch
 
 from dcsexplorer_tpu_torch.models import flatsweep as fs
+from dcsexplorer_tpu_torch.models import pipeline, romplay
 from dcsexplorer_tpu_torch.ops import band_decode as bd
 from dcsexplorer_tpu_torch.ops import kernels
 from dcsexplorer_tpu_torch.ops import transform as tf
+from dcsexplorer_tpu_torch.refdec import decoder as rd
+from dcsexplorer_tpu_torch.rom import zipload
 
 pytestmark = pytest.mark.gpu
 
-ASSETS = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))),
-                      "assets", "streams")
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+ASSETS = os.path.join(REPO, "assets", "streams")
+SESSION6_ZIP = os.path.join(REPO, "dcsexplorer_tpu_torch", "data",
+                            "session6.zip")
 
 
 @pytest.fixture(scope="module")
@@ -216,5 +224,166 @@ def test_sweep_on_the_card_equals_the_cpu_sweep(dev):
     launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
     want = fs.FlatPipeline("cpu")(**fs.packed_to_device(arrays, "cpu"))
     assert torch.equal(want, got.cpu())
-    assert launched == {"decode94_fb": 1, "dequant_mix": 0,
-                        "transform94_planar": 0, "transform94_pcm": 1}
+    assert launched == {"decode94_fb": 1, "decode94_bank": 0,
+                        "dequant_mix": 0, "segments94": 0, "session_mix94": 0,
+                        "transform94_planar": 0, "transform94_pcm": 1,
+                        "transform94_pcm_carry": 0}
+
+
+# -- the session path --------------------------------------------------------
+
+
+@pytest.mark.parametrize("C", [1, 6, 8])
+def test_session_mix94_kernel_on_random_rows(dev, C):
+    # random bank rows over the whole u16 range (row 0 silent), rows that
+    # include 0, mixes over the whole u16 range, frames past a block's end
+    g = torch.Generator(device=dev).manual_seed(C)
+    R, F = 3000, 2 * 8 * 97 + 3
+    bank = torch.randint(-(1 << 15), 1 << 15, (R, 256), generator=g,
+                         device=dev, dtype=torch.int32).to(torch.int16)
+    bank[0] = 0
+    bank[1] = -(1 << 15)
+    bank[2] = (1 << 15) - 1
+    rows = torch.randint(0, R, (F, C), generator=g, device=dev,
+                         dtype=torch.int32)
+    rows[torch.rand((F, C), generator=g, device=dev) < 0.3] = 0
+    rows[:8] = torch.arange(8, device=dev, dtype=torch.int32)[:, None] % 3
+    mix = torch.randint(0, 1 << 16, (F, C), generator=g, device=dev,
+                        dtype=torch.int32)
+    mix[:4, 0] = torch.tensor([0, 0xFFFF, 0x8000, 0x7FFF], device=dev,
+                              dtype=torch.int32)
+    want = bd.session_mix94_plain(bank, rows, mix)
+    got = kernels.session_mix94(bank, rows, mix)
+    torch.cuda.synchronize()
+    assert torch.equal(want, got)
+
+
+def _segment_wire(S, T, C, E, seed):
+    """A random control wire: per lane up to E segments with sorted starts
+    from frame 0, random bases, slopes 0/1 and mixes over the u16 range."""
+    rng = np.random.default_rng(seed)
+    f0 = np.full((S, C, E), 0xFFFF, np.int64)
+    for s in range(S):
+        for c in range(C):
+            n = int(rng.integers(1, min(E, T) + 1))
+            f0[s, c, :n] = np.sort(np.concatenate(
+                [[0], rng.choice(np.arange(1, T), n - 1, replace=False)]))
+    comp = dict(f0=f0.astype(np.uint16),
+                base=rng.integers(0, 60000, (S, C, E)).astype(np.uint16),
+                slope=rng.integers(0, 2, (S, C, E)).astype(np.uint8),
+                mixv=rng.integers(0, 1 << 16, (S, C, E)).astype(np.uint16))
+    vol = rng.integers(0, 256, (S, T)).astype(np.uint8)
+    return romplay.pack_controls_wire(comp, vol)
+
+
+@pytest.mark.parametrize("E", [1, 4, 255])
+def test_segments94_kernel_on_random_tables(dev, E):
+    for S, T, C in ((5, 300, 6), (3, 1000, 8), (2, 7, 1)):
+        wire = torch.tensor(_segment_wire(S, T, C, E, E + C), device=dev)
+        want = romplay.segments94_plain(wire, S, T, C, E)
+        got = kernels.segments94(wire, S, T, C, E)
+        torch.cuda.synchronize()
+        assert all(torch.equal(w, k) for w, k in zip(want, got)), (S, T, C)
+
+
+@pytest.mark.parametrize("n", [1, T - 1, T + 1, 5 * T + 3])
+def test_transform94_pcm_kernel_carries_overlap(dev, tabs, n):
+    # random carried states; sessions of 1 frame, sessions crossing tiles,
+    # session starts at tile edges, ids with no frames (they keep theirs)
+    rng = np.random.default_rng(n + 7)
+    fb = torch.tensor(rng.integers(0, 0x10000, size=(n, 512))
+                      .astype(np.int32), device=dev)
+    vs = torch.tensor(rng.integers(0, 41, size=n).astype(np.int32),
+                      device=dev)
+    runs = np.repeat(np.arange(n), rng.integers(1, 2 * T, size=n))[:n]
+    edges = np.searchsorted([T - 1, T, T + 1, 2 * T], np.arange(n), "right")
+    for sid in (np.zeros(n), np.arange(n), 2 * runs, 3 * edges + 1):
+        G = int(sid.max()) + 3
+        ov0 = torch.tensor(rng.integers(0, 0x10000, size=(G, 16))
+                           .astype(np.int32), device=dev)
+        sid_t = torch.tensor(sid.astype(np.int32), device=dev)
+        want = tf.transform94_pcm_plain(fb, vs, sid_t, tabs, ov0)
+        got = kernels.transform94_pcm(fb, vs, sid_t, tabs, ov0)
+        torch.cuda.synchronize()
+        assert torch.equal(want[0], got[0]) and torch.equal(want[1], got[1])
+        assert torch.equal(got[1][-1], ov0[-1])
+    # no carry: the flat sweep's result, unchanged
+    assert torch.equal(kernels.transform94_pcm(fb, vs, sid_t, tabs),
+                       tf.transform94_pcm_plain(fb, vs, sid_t, tabs))
+
+
+def _bank_columns(dev):
+    bank = pipeline.StreamBank(rd.OS94)
+    for p in sorted(glob.glob(os.path.join(ASSETS, "*.dcs94"))):
+        bank.add(open(p, "rb").read())
+    cols = bank.columns()
+    n_steps = cols.pop("n_steps")
+    return {k: torch.tensor(v, device=dev) for k, v in cols.items()}, n_steps
+
+
+def test_decode94_bank_kernel_on_the_assets(dev, tabs):
+    cols, n_steps = _bank_columns(dev)
+    want = bd.decode94_bank_plain(**cols, n_steps=n_steps, tabs=tabs)
+    got = kernels.decode94_bank(**cols, n_steps=n_steps, tabs=tabs)
+    torch.cuda.synchronize()
+    assert got.shape == (cols["sid"].shape[0] + 1, 256)
+    assert torch.equal(want, got)
+
+
+@pytest.mark.parametrize("n_steps", [256, 100, 0])
+def test_decode94_bank_kernel_on_random_streams(dev, tabs, n_steps):
+    cols = _random_catalog(2051, n_steps + 1, dev)
+    del cols["mix"]
+    want = bd.decode94_bank_plain(**cols, n_steps=n_steps, tabs=tabs)
+    got = kernels.decode94_bank(**cols, n_steps=n_steps, tabs=tabs)
+    torch.cuda.synchronize()
+    assert torch.equal(want, got)
+
+
+def test_session_wrappers_refuse_bad_tensors(dev, tabs):
+    bank = torch.zeros((5, 256), dtype=torch.int16, device=dev)
+    rows = torch.zeros((4, 6), dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        kernels.session_mix94(bank.int(), rows, rows)
+    nine = torch.zeros((4, 9), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="channels"):
+        kernels.session_mix94(bank, nine, nine)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.session_mix94(bank, rows.cpu(), rows)
+    wire = torch.zeros(7 * 2 * 6 * 4 + 2 * 16, dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.segments94(wire[1:], 2, 16, 6, 4)
+    with pytest.raises(ValueError, match="segments"):
+        kernels.segments94(wire, 2, 16, 6, 256)
+    fb = torch.zeros((4, 512), dtype=torch.int32, device=dev)
+    vs = sid = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.transform94_pcm(fb, vs, sid, tabs,
+                                torch.zeros((2, 8), dtype=torch.int32,
+                                            device=dev))
+    cols = _random_catalog(64, 0, dev)
+    del cols["mix"]
+    cols["bt_u8"] = cols["bt_u8"].int()
+    with pytest.raises(TypeError):
+        kernels.decode94_bank(**cols, n_steps=8, tabs=tabs)
+
+
+def test_session_server_on_the_card_equals_the_cpu_server(dev):
+    rs, _ = zipload.load_zip_file(SESSION6_ZIP)
+    S, T = 5, 150
+    batches = [[{(b * 7 + t * 3) % 40: [0x00, t] for t in range(1, 7)}
+                | {0: [0x55, 0xAA, 0x40 + b, (0x40 + b) ^ 0xFF]}
+                for b in range(k * S, k * S + S)] for k in range(3)]
+    before = dict(kernels.LAUNCHES)
+    with romplay.SessionServer(rs, S, T, n_ch=6, depth=2) as srv:
+        got = list(srv.serve(batches))
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    with romplay.SessionServer(rs, S, T, n_ch=6, device="cpu") as srv:
+        want = list(srv.serve(batches))
+    assert len(got) == len(want) == 3
+    assert all(np.array_equal(w, g) for w, g in zip(want, got))
+    # a served batch starts each session from a zero state: no carry
+    assert launched == {"decode94_fb": 0, "decode94_bank": 1,
+                        "dequant_mix": 0, "segments94": 3, "session_mix94": 3,
+                        "transform94_planar": 0, "transform94_pcm": 3,
+                        "transform94_pcm_carry": 0}
