@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Smoke run of the PyTorch + CUDA port on one GPU: the flat 1994+ catalog
-sweep and the 1994+ ROM session path (dcsexplorer_tpu_torch) end to end,
-through their hand-written kernels.
+"""Smoke run of the PyTorch + CUDA port on one GPU: the flat catalog sweeps
+and the ROM session paths of the 1994+ and the 1993 families
+(dcsexplorer_tpu_torch) end to end, through their hand-written kernels.
 
     python3 chip_smoke.py
 
@@ -45,8 +45,34 @@ non-zero):
      host's enqueue time of one batch, the wire's upload and the PCM fetch
      from and into pinned and pageable memory, and the peak device memory of
      one batch
-Then one JSON line of per-kernel results (launches: over both paths, each
-path's own printed in phases 4 and 7), and last the {"ok": true, ...} line.
+ 10. the flat 1993 sweeps at bench.py's width: pack dec93b (music_a.dcs93b
+     + music_b.dcs93a x 72: 144 streams) and dec93a_t1 (dense_t1.dcs93a1 +
+     dense_t1b.dcs93a1 x 72) and run both through Flat93Pipeline on the
+     card: the launch counters of decode93_fb and transform93_pcm must
+     move, PCM must equal the plain-version sweep; each timed as phase 4
+     times the 1994+ sweep, beside the host's pack and its unpack of the
+     compact wire + upload; all four assets/streams/*.dcs93* against the
+     port's ReferenceDecoder (OS93b for the 93b / 93a Type-0 wire, OS93a
+     for Type-1), bit for bit
+ 11. the 1993 session path at session6's serving width: load
+     dcsexplorer_tpu_torch/data/session93a.zip (OS93a, both row kinds),
+     build the bank, serve one batch of 320 sessions x 1,000 frames x 6
+     voices through SessionServer and play session 0 through play_session;
+     the launch counters of segments94, decode93_fb, transform93_pcm and
+     transform93_pcm_carry must move; the batch equals the plain-version
+     server, session 0 play_session's, sessions 0 and 319 the scalar
+     decoder over 250 frames, and no session is silent
+ 12. the 1993 kernels against their plain versions at those shapes, timed
+     beside their bounds as in phase 3: decode93_fb on both sweeps and on
+     the session batch (C = 6, both kinds), transform93_pcm on the dec93b
+     sweep, transform93_pcm_carry on the batch with a random carried
+     state; the stage spans of the dec93b sweep and of one session93a
+     batch; the batch's device time, serve() x realtime over 8 batches
+     with every gap and latency as in phase 9, the native trace, and the
+     peak device memory of one batch
+Then one JSON line of per-kernel results (launches: over all four paths,
+each path's own printed in phases 4, 7, 10 and 11), and last the
+{"ok": true, ...} line.
 There is no CPU path: without a CUDA device the script exits 1.
 """
 
@@ -62,7 +88,10 @@ STREAMS = os.path.join(HERE, "assets", "streams")
 COPIES = 144                   # x (music_a, music_b): bench.py's flat94_music
 SESSION6_ZIP = os.path.join(HERE, "dcsexplorer_tpu_torch", "data",
                             "session6.zip")
+SESSION93A_ZIP = os.path.join(HERE, "dcsexplorer_tpu_torch", "data",
+                              "session93a.zip")
 SESSIONS, SESSION_FRAMES, VOICES, SEG_E = 320, 1000, 6, 32   # bench.py session6
+COPIES93 = 72                  # x 2 streams: bench.py's dec93b and dec93a_t1
 REF_FRAMES = 250               # frames held against the scalar decoder
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12      # H100 SXM: 64 INT32 lanes/SM, 132 SMs, 1.98 GHz,
@@ -110,6 +139,38 @@ def session_events(b):
     return events
 
 
+def _serve_timing(srv, n_batches, batch_audio_s):
+    """serve() over n_batches batches of distinct sessions, after 3 that
+    warm the pinned-memory cache: (x realtime, ms from the call to the
+    first arrival and then between arrivals, each batch's latency in ms).
+    The rate is all the batches' audio over the time from the call to the
+    last arrival (the pipeline's fill included); a batch's latency runs
+    from the start of its trace to its arrival."""
+    S, T = srv.n_sessions, srv.n_frames
+    batches = [[session_events(S * k + b) for b in range(S)]
+               for k in range(n_batches + 3)]
+    for _ in srv.serve(batches[:3]):
+        pass
+    prepare, starts = srv.prepare, []
+
+    def timed_prepare(events_list):
+        starts.append(time.perf_counter())
+        return prepare(events_list)
+
+    srv.prepare = timed_prepare
+    t_call = time.perf_counter()
+    ts = []
+    for out_b in srv.serve(batches[3:]):
+        ts.append(time.perf_counter())
+    srv.prepare = prepare
+    if len(ts) != n_batches or out_b.shape != (S, T * 240):
+        raise AssertionError(f"serve(): {len(ts)} batches, {out_b.shape}")
+    serve_x = n_batches * batch_audio_s / (ts[-1] - t_call)
+    gaps = [1e3 * (b - a) for a, b in zip([t_call] + ts, ts)]
+    latency = [1e3 * (t - a) for a, t in zip(starts, ts)]
+    return serve_x, gaps, latency
+
+
 def main():
     import torch
     if not torch.cuda.is_available():
@@ -117,9 +178,11 @@ def main():
         return 1
     import numpy as np
     from dcsexplorer_tpu_torch import native
+    from dcsexplorer_tpu_torch.models import catalogsweep as cs
     from dcsexplorer_tpu_torch.models import flatsweep as fs
     from dcsexplorer_tpu_torch.models import pipeline, romplay
     from dcsexplorer_tpu_torch.ops import band_decode as bd
+    from dcsexplorer_tpu_torch.ops import decode93 as d93
     from dcsexplorer_tpu_torch.ops import kernels
     from dcsexplorer_tpu_torch.ops import transform as tf
     from dcsexplorer_tpu_torch.refdec import decoder as rd
@@ -208,22 +271,29 @@ def main():
                                   "dcsexplorer_tpu/ops/transform.py:352")}
 
     def check(name, plain_fn, kern_fn, reps_plain, reps_kern, n_bytes, n_ops,
-              phase=3):
+              phase=3, shape=None):
+        """Kernel against plain, both timed, beside the bound.  A check
+        labelled with a ``shape`` is printed only: the kernels line keeps
+        each kernel's check without one."""
         want = plain_fn()
         got = kern_fn()
         torch.cuda.synchronize()
         pairs = list(zip(want, got)) if isinstance(want, tuple) \
             else [(want, got)]
         err = max(_max_abs_err(w, g) for w, g in pairs)
+        label = name if shape is None else f"{name} ({shape})"
         if err != 0 or any(w.shape != g.shape for w, g in pairs):
-            raise AssertionError(f"{name}: kernel != plain (max abs err {err})")
+            raise AssertionError(f"{label}: kernel != plain (max abs err "
+                                 f"{err})")
         plain_ms = _time_ms(plain_fn, reps_plain, torch)
         ms = _time_ms(kern_fn, reps_kern, torch)
         bound_ms, bound_by = _bound(n_bytes, n_ops)
-        print(f"phase {phase} {name}: bit-exact, kernel {ms:.4f} ms, "
+        print(f"phase {phase} {label}: bit-exact, kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}; {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} G "
               f"int ops) = {100 * bound_ms / ms:.1f}% of the bound")
+        if shape is not None:
+            return want
         results[name] = dict(
             name=name, route="cuda",
             source=f"dcsexplorer_tpu_torch/csrc/{where[name][0]}",
@@ -565,32 +635,8 @@ def main():
                             5, torch)
     fetch_pageable = _time_ms(lambda: pcm16.cpu(), 5, torch)
     del pinned
-    # serving: 8 batches of distinct sessions, after 3 that warm the
-    # pinned-memory cache; the rate is all 8 batches' audio over the time
-    # from the call to the last arrival (the pipeline's fill included), and
-    # a batch's latency runs from the start of its trace to its arrival
     n_batches = 8
-    batches = [[session_events(S * k + b) for b in range(S)]
-               for k in range(n_batches + 3)]
-    for _ in srv.serve(batches[:3]):
-        pass
-    prepare, starts = srv.prepare, []
-
-    def timed_prepare(events_list):
-        starts.append(time.perf_counter())
-        return prepare(events_list)
-
-    srv.prepare = timed_prepare
-    t_call = time.perf_counter()
-    ts = []
-    for out_b in srv.serve(batches[3:]):
-        ts.append(time.perf_counter())
-    srv.prepare = prepare
-    if len(ts) != n_batches or out_b.shape != (S, T * 240):
-        raise AssertionError(f"serve(): {len(ts)} batches, {out_b.shape}")
-    serve_x = n_batches * session_audio_s / (ts[-1] - t_call)
-    gaps = [1e3 * (b - a) for a, b in zip([t_call] + ts, ts)]
-    latency = [1e3 * (t - a) for a, t in zip(starts, ts)]
+    serve_x, gaps, latency = _serve_timing(srv, n_batches, session_audio_s)
     torch.cuda.synchronize()
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats(dev)
@@ -618,6 +664,331 @@ def main():
           f"peak memory of one batch {peak / 2**30:.3f} GiB "
           f"({(peak - base) / 2**30:.3f} GiB above the resident bank and "
           f"inputs); E {E}")
+
+    del wire, scaled
+    torch.cuda.empty_cache()
+
+    # 10. the flat 1993 sweeps at bench.py's width (dec93b, dec93a_t1),
+    # through the entry points a user calls
+    where.update({
+        "decode93_fb": ("decode93_fb.cu",
+                        "dcsexplorer_tpu/ops/decode93.py:197"),
+        "transform93_pcm": ("transform93_pcm.cu",
+                            "dcsexplorer_tpu/ops/transform.py:490"),
+        "transform93_pcm_carry": ("transform93_pcm.cu",
+                                  "dcsexplorer_tpu/ops/transform.py:586")})
+    sweeps93 = {}
+    for name, files, t1 in (
+            ("dec93b", ("music_a.dcs93b", "music_b.dcs93a"), False),
+            ("dec93a_t1", ("dense_t1.dcs93a1", "dense_t1b.dcs93a1"), True)):
+        streams = [_read(os.path.join(STREAMS, n)) for n in files]
+        t0 = time.perf_counter()
+        sw = cs.Flat93Sweep(streams * COPIES93, t1)
+        wire93 = sw.compact_host_arrays()
+        pack_s = time.perf_counter() - t0
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        cols93 = cs.packed93_to_device(wire93, dev)
+        torch.cuda.synchronize()
+        sweeps93[name] = dict(t1=t1, streams=streams, sweep=sw, cols=cols93,
+                              pack_s=pack_s,
+                              unpack_s=time.perf_counter() - t0)
+    pipe93 = cs.Flat93Pipeline(dev)
+    plain93 = cs.Flat93Pipeline(dev, plain=True)
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    for sw93 in sweeps93.values():
+        sw93["pcm"] = pipe93(**sw93["cols"])
+    torch.cuda.synchronize()
+    f93_launches = dict(kernels.LAUNCHES)
+    if not all(f93_launches[k] > 0 for k in ("decode93_fb",
+                                              "transform93_pcm")):
+        raise AssertionError(f"a kernel of the 1993 sweep did not launch: "
+                             f"{f93_launches}")
+    print(f"phase 10 launches of the two sweeps: {f93_launches}")
+    for name, sw93 in sweeps93.items():
+        cols93, pcm = sw93["cols"], sw93["pcm"]
+        n93 = sw93["sweep"].n_frames_total
+        err = _max_abs_err(pcm, plain93(**cols93))
+        if err != 0 or pcm.shape != (n93, 240):
+            raise AssertionError(f"{name}: sweep PCM != plain sweep (max abs "
+                                 f"err {err})")
+        if not bool((pcm >= 0).all() & (pcm <= 0xFFFF).all()):
+            raise AssertionError(f"{name}: sweep PCM outside u16 storage")
+        audio93 = sw93["sweep"].audio_samples / fs.SAMPLE_RATE
+        ms = _time_ms(lambda: pipe93(**cols93), 5, torch)
+        enqueue = []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            pipe93(**cols93)
+            enqueue.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        plain_ms = _time_ms(lambda: plain93(**cols93), 1, torch)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        pipe93(**cols93)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated(dev)
+        print(f"phase 10 {name}: {len(sw93['streams']) * COPIES93} streams, "
+              f"{n93} frames, {audio93:.3f} s audio, pool "
+              f"{cols93['pool_u8'].numel()} B; host pack {sw93['pack_s']:.3f}"
+              f" s, host unpack + upload {sw93['unpack_s'] * 1e3:.3f} ms; "
+              f"PCM bit-exact with the plain sweep; "
+              f"device {ms:.3f} ms = {audio93 / (ms / 1e3):.1f}x realtime "
+              f"(plain {plain_ms:.3f} ms = {audio93 / (plain_ms / 1e3):.1f}x)"
+              f"; host enqueue {sum(enqueue) / 5:.4f} ms (min "
+              f"{min(enqueue):.4f}, max {max(enqueue):.4f}); peak memory of "
+              f"one sweep {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} "
+              f"GiB above the resident inputs)")
+
+    # every .dcs93* asset through the sweep against the scalar decoder
+    t0 = time.perf_counter()
+    n_ref = 0
+    for name, sw93 in sweeps93.items():
+        one_copy = cs.Flat93Sweep(sw93["streams"], sw93["t1"])
+        got = cs.run_flat93(one_copy, dev)
+        pos = 0
+        for s93 in sw93["streams"]:
+            nf = (s93[0] << 8) | s93[1]
+            want = cs.reference_pcm93(s93, nf, sw93["t1"])
+            seg = got[pos:pos + nf * 240]
+            if not np.array_equal(want, seg) or not np.abs(want).max() > 0:
+                bad = np.nonzero(want != seg)[0]
+                raise AssertionError(f"{name}: a stream of {nf} frames: "
+                                     f"{bad.size} samples differ from the "
+                                     f"reference (or it is silent)")
+            pos += nf * 240
+            n_ref += nf
+        if pos != got.size:
+            raise AssertionError(f"{name}: {got.size - pos} samples past the "
+                                 f"last stream")
+    print(f"phase 10 reference: the four .dcs93* assets ({n_ref} frames) "
+          f"bit-exact with the port's ReferenceDecoder, OS93b for the 93b / "
+          f"93a Type-0 wire and OS93a for Type-1 "
+          f"({time.perf_counter() - t0:.3f} s scalar)")
+
+    # 11. the 1993 session path at session6's serving width: session93a.zip
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    rs93, _ = zipload.load_zip_file(SESSION93A_ZIP)
+    if rs93.check() != 1 or rs93.os_version != rd.OS93A:
+        raise AssertionError("session93a.zip does not load as an OS93a ROM")
+    bank93 = romplay.build_rom_bank(rs93, dev)
+    torch.cuda.synchronize()
+    bank93_s = time.perf_counter() - t0
+    srv93 = romplay.SessionServer(rs93, S, T, n_ch=C, seg_e=SEG_E,
+                                  bank=bank93, device=dev)
+    got93 = srv93.serve_one(batch)
+    one93, _ = romplay.play_session(
+        rs93, {f: (lambda d, bs=tuple(bs): [d.write_data_port(x) for x in bs])
+               for f, bs in batch[0].items()}, T, bank=bank93)
+    torch.cuda.synchronize()
+    s93_launches = dict(kernels.LAUNCHES)
+    if not all(s93_launches[k] > 0 for k in (
+            "segments94", "decode93_fb", "transform93_pcm",
+            "transform93_pcm_carry")):
+        raise AssertionError(f"a kernel of the 1993 session path did not "
+                             f"launch: {s93_launches}")
+    if got93.shape != (S, T * 240) or got93.dtype != np.int16:
+        raise AssertionError(f"session93a batch {got93.shape} {got93.dtype}")
+    with romplay.SessionServer(rs93, S, T, n_ch=C, seg_e=SEG_E, bank=bank93,
+                               device=dev, plain=True) as plain_srv:
+        want = plain_srv.serve_one(batch)
+    if not np.array_equal(want, got93):
+        bad = np.argwhere(want != got93)
+        raise AssertionError(f"session93a batch != plain batch at "
+                             f"{bad.shape[0]} samples, first (session, "
+                             f"sample) {bad[0]}")
+    del want
+    if not np.array_equal(one93, got93[0]):
+        raise AssertionError("session93a: play_session != the served "
+                             "batch's session 0")
+    silent = np.nonzero(np.abs(got93.astype(np.int32)).max(axis=1) == 0)[0]
+    if silent.size:
+        raise AssertionError(f"session93a: {silent.size} silent sessions, "
+                             f"first {silent[0]}")
+    t0 = time.perf_counter()
+    for b in (0, S - 1):
+        dec = rd.ReferenceDecoder()
+        dec.default_volume = 0x67
+        dec.load_rom_set(rs93)
+        dec.soft_boot()
+        ref = []
+        for f in range(REF_FRAMES):
+            for byte in batch[b].get(f, ()):
+                dec.write_data_port(byte)
+            ref.extend(dec.next_samples(240))
+        ref = np.array(ref, dtype=np.int16)
+        if not np.array_equal(ref, got93[b, :REF_FRAMES * 240]):
+            bad = np.nonzero(ref != got93[b, :REF_FRAMES * 240])[0]
+            raise AssertionError(f"session93a {b}: {bad.size} samples differ "
+                                 f"from the scalar decoder, first {bad[0]}")
+    kinds93 = bank93.cols["kind_u8"].cpu().numpy()
+    print(f"phase 11 sessions93: session93a.zip, bank {bank93.total_rows()} "
+          f"rows ({int((kinds93 == d93.ROW_93).sum())} of the 93 bands, "
+          f"{int((kinds93 == d93.ROW_93A).sum())} OS93a Type-1; pool "
+          f"{bank93.cols['pool_u8'].numel()} B) built in {bank93_s:.3f} s "
+          f"(load + prescan + upload); one batch of {S} sessions x {T} "
+          f"frames x {C} voices through SessionServer and session 0 through "
+          f"play_session, launches {s93_launches}; PCM of all {S} sessions "
+          f"bit-exact with the plain batch on the card, none silent; session "
+          f"0 with play_session's; sessions 0 and {S - 1} bit-exact with the "
+          f"port's ReferenceDecoder over {REF_FRAMES} frames "
+          f"({time.perf_counter() - t0:.3f} s scalar)")
+
+    # 12. the 1993 kernels against their plain versions at the paths' shapes
+    tabs93 = dict(pipe93.named_buffers())
+    inputs93 = tabs93["inputs"].long()
+
+    def decode93_work(cols, rows):
+        """(93 band cells, 93a inputs) that these rows decode (rows None:
+        each row once)."""
+        a93, a93a = d93.unpack_columns93(cols)
+        cells = torch.where(a93["kind"] != d93.K_NONE, a93["n_samp"],
+                            0).sum(1)
+        ins = torch.where(a93a["bits"] > 0, inputs93[None, :], 0).sum(1)
+        if rows is not None:
+            cells, ins = cells[rows.long()], ins[rows.long()]
+        return int(cells.sum()), int(ins.sum())
+
+    def check_decode93(cols, rows, mix, shape=None):
+        # reads each bank row's columns once (frame_word, sid, kind, kw,
+        # bit_rel, prv, code: 181 B), the rows and mixes, the pool and the
+        # band tables, and writes [F, 512]; ~12 integer operations a 93
+        # band cell (extract, sign-extend, chain, scale, mix multiply-add)
+        # and ~16 a 93a input (extract, pair look-up, two rounded
+        # multiply-adds)
+        R, F = cols["frame_word"].shape[0], mix.shape[0]
+        cells, ins = decode93_work(cols, rows)
+        n_bytes = (R * 181 + cols["pool_u8"].numel()
+                   + cols["band_tab"].numel() * 4 + mix.numel() * 4
+                   * (1 if rows is None else 2) + F * 512 * 4)
+        return check(
+            "decode93_fb",
+            lambda: d93.decode93_fb_plain(cols, rows, mix, tabs93),
+            lambda: kernels.decode93_fb(*(cols[k] for k in d93.COLUMNS),
+                                        rows, mix, tabs93["pair"],
+                                        tabs93["inputs"]),
+            1, 20, n_bytes, 12 * cells + 16 * ins, phase=12, shape=shape)
+
+    # transform93_pcm reads words 0..255 of each frame buffer, the volume
+    # shift and the stream id, and writes [N, 240]; ~15,000 integer
+    # operations a frame, counted as phase 3 counts the 1994 transform
+    # (~15 a butterfly: seven radix-2 stages of 128 butterflies, the
+    # expansion, the slot-0 fix-up, the volume shift and 16 blends)
+    c93 = sweeps93["dec93b"]["cols"]
+    fb93 = check_decode93(c93, None, c93["mix"])
+    vol93 = c93["vol"]
+    check("transform93_pcm",
+          lambda: tf.transform93_pcm_plain(fb93, vol93, c93["sid"], tabs93),
+          lambda: kernels.transform93_pcm(fb93, vol93, c93["sid"], tabs93),
+          1, 20, fb93.shape[0] * (256 * 4 + 4 + 4 + 240 * 4),
+          15000 * fb93.shape[0], phase=12)
+    del fb93
+    ct1 = sweeps93["dec93a_t1"]["cols"]
+    check_decode93(ct1, None, ct1["mix"], shape="dec93a_t1, OS93a Type-1")
+
+    # the session batch's shapes: C = 6 voices of both row kinds
+    wire_np93, E93 = srv93.prepare(batch)
+    wire93 = torch.tensor(wire_np93, device=dev)
+    rows93, mixes93, vols93 = romplay.segments94(wire93, S, T, C, E93)
+    bcols = dict(srv93.decoder.named_buffers())
+    bkind = bcols["kind_u8"][rows93.long()]
+    mixed = int(((bkind == d93.ROW_93).any(1)
+                 & (bkind == d93.ROW_93A).any(1)).sum())
+    fbs93 = check_decode93(bcols, rows93, mixes93,
+                           shape=f"session93a batch, C = {C}, {mixed} frames "
+                                 f"of both kinds")
+    gen = torch.Generator(device=dev).manual_seed(2)
+    ov93 = torch.randint(0, 1 << 16, (S, 16), generator=gen, device=dev,
+                         dtype=torch.int32)
+    check("transform93_pcm_carry",
+          lambda: tf.transform93_pcm_plain(fbs93, vols93, sid, tabs93, ov93),
+          lambda: kernels.transform93_pcm(fbs93, vols93, sid, tabs93, ov93),
+          1, 20, F * (256 * 4 + 4 + 4 + 240 * 4) + S * 16 * 4 * 2,
+          15000 * F, phase=12)
+    del fbs93, rows93, mixes93, vols93
+    for k, r in results.items():        # phase 10's launches and phase 11's
+        r["launches"] += f93_launches[k] + s93_launches[k]
+
+    # stage spans (device time, queued behind a device sleep): the dec93b
+    # sweep, and one session93a batch
+    def spans_of(stages, reps=4):
+        spans = {k: [] for k, _ in stages}
+        for rep in range(reps):
+            ev = [torch.cuda.Event(enable_timing=True)
+                  for _ in range(len(stages) + 1)]
+            torch.cuda._sleep(int(0.1 * 1.98e9))
+            ev[0].record()
+            out = None
+            for i, (_, fn) in enumerate(stages):
+                out = fn(out)
+                ev[i + 1].record()
+            torch.cuda.synchronize()
+            if rep:                               # the first is a warm-up
+                for (k, _), a, b in zip(stages, ev, ev[1:]):
+                    spans[k].append(a.elapsed_time(b))
+        return out, {k: sum(v) / len(v) for k, v in spans.items()}
+
+    out, sweep_spans = spans_of([
+        ("decode93_fb", lambda _: d93.decode93_fb(c93, None, c93["mix"],
+                                                  tabs93)),
+        ("transform93_pcm", lambda fb: tf.transform93_pcm(
+            fb, c93["vol"], c93["sid"], tabs93))])
+    if _max_abs_err(out, sweeps93["dec93b"]["pcm"]) != 0:
+        raise AssertionError("dec93b stage-span run != sweep PCM")
+    ctl = {}
+
+    def expand(_):
+        ctl["rows"], ctl["mix"], ctl["vol"] = romplay.segments94(
+            wire93, S, T, C, E93)
+        return None
+
+    out, batch_spans = spans_of([
+        ("segments94", expand),
+        ("decode93_fb", lambda _: d93.decode93_fb(bcols, ctl["rows"],
+                                                  ctl["mix"], tabs93)),
+        ("transform93_pcm", lambda fb: tf.transform93_pcm(
+            fb, ctl["vol"], sid, tabs93)),
+        ("int16", pipeline.to_int16)])
+    if not np.array_equal(out.reshape(S, -1).cpu().numpy(), got93):
+        raise AssertionError("session93a span run != served batch")
+    del out, ctl
+    batch93_ms = _time_ms(lambda: srv93.decode_wire(wire93, E93), 5, torch)
+    trace93 = []
+    for k in range(3):
+        t0 = time.perf_counter()
+        srv93.prepare([session_events(S * (k + 1) + b) for b in range(S)])
+        trace93.append((time.perf_counter() - t0) * 1e3)
+    serve93_x, gaps93, latency93 = _serve_timing(srv93, n_batches,
+                                                 session_audio_s)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    srv93.decode_wire(wire93, E93)
+    torch.cuda.synchronize()
+    peak93 = torch.cuda.max_memory_allocated(dev)
+    srv93.close()
+    fmt_spans = lambda sp: ", ".join(f"{k} {v:.4f}" for k, v in sp.items()) \
+        + f", sum {sum(sp.values()):.4f}"
+    print(f"phase 12 spans (ms, mean of 3): dec93b sweep "
+          f"{fmt_spans(sweep_spans)} (the compact wire's unpack runs on the "
+          f"host in packed93_to_device, phase 10); session93a batch "
+          f"{fmt_spans(batch_spans)}")
+    print(f"phase 12 sessions93: device time of one batch {batch93_ms:.4f} "
+          f"ms = {session_audio_s / (batch93_ms / 1e3):.1f}x realtime; "
+          f"serve() over {n_batches} batches {serve93_x:.1f}x realtime (ms "
+          f"from the call to the first arrival, then between arrivals: "
+          + ", ".join(f"{g:.1f}" for g in gaps93) + "; latency from the "
+          "start of the trace ms: " + ", ".join(f"{a:.1f}" for a in latency93)
+          + f"); native trace + wire of one batch {sum(trace93) / 3:.2f} ms "
+          f"(min {min(trace93):.2f}, max {max(trace93):.2f}); peak memory of "
+          f"one batch {peak93 / 2**30:.3f} GiB ({(peak93 - base) / 2**30:.3f}"
+          f" GiB above the resident bank and inputs); E {E93}")
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

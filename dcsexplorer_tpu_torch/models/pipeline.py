@@ -1,4 +1,4 @@
-"""Session decode pipeline (1994+ family): host VM control + device numerics.
+"""Session decode pipeline: host VM control + device numerics.
 
 Counterpart of ``dcsexplorer_tpu/models/pipeline.py``.  The branchy runtime
 (track byte-code VM, command queue, mixer fades, volume) runs on the host as
@@ -7,21 +7,26 @@ vectors: which bank row plays on which channel at what mixing multiplier,
 plus the global volume shift.  The device then runs the numerics for all
 frames at once:
 
+1994+ family (OS94, OS95):
     bank (once per ROM):  decode94_bank -> scaled rows [R, 256]
     per session batch:    session_mix94 (the channels' multi-voice
                           dequant/mix) -> transform94_pcm (with a carried
                           overlap state where the caller gives one) -> PCM
+1993 family (OS93a, OS93b; ``device_decode93`` of the reference):
+    bank (once per ROM):  the streams' bytes and their prescan index as the
+                          bank columns of ops/decode93.py (no decode)
+    per session batch:    decode93_fb (each frame's voices, in channel
+                          order, straight from the bitstream) ->
+                          transform93_pcm (with a carried state likewise)
 
-``StreamBank`` decodes every stream a ROM's tracks play once, into
-mix-independent rows (row 0 silent); ``SessionDecoder`` is the device half
-as an ``nn.Module`` whose buffers are the codec tables and the bank's rows.
-On CUDA tensors each stage is a hand-written kernel (``ops/kernels.py``); on
-CPU tensors, or with ``plain=True``, their plain PyTorch versions run.  The
-entry points run on the card unless the caller names another device.
-Bit-exact with the JAX reference and the scalar decoder.
-
-The 1993 family (``device_decode93``, ``StreamBank._build93``) is not ported
-yet (ROADMAP.md §1 item 6).
+``StreamBank`` holds every stream a ROM's tracks play (row 0 silent);
+``SessionDecoder`` and ``SessionDecoder93`` are the device halves as
+``nn.Module``s whose buffers are the codec tables and the bank, and
+``session_decoder`` picks one by the bank's family.  On CUDA tensors each
+stage is a hand-written kernel (``ops/kernels.py``); on CPU tensors, or with
+``plain=True``, their plain PyTorch versions run.  The entry points run on
+the card unless the caller names another device.  Bit-exact with the JAX
+reference and the scalar decoder.
 """
 
 import numpy as np
@@ -29,24 +34,34 @@ import torch
 from torch import nn
 
 from ..ops import band_decode as bd
-from ..ops import prescan
+from ..ops import decode93, decode93a, prescan
 from ..ops import transform as tf
 from ..refdec import decoder as rd
 from ..vm.tracer import ControlTracer
+from . import catalogsweep as cs
 from .flatsweep import _device, codec_tables
 
 
+def _prescan(os_version, mem, pos):
+    """The index of the stream at mem[pos] and its row kind (True for
+    OS93a Type-1), with the walker of the ROM's family."""
+    if os_version == rd.OS93A and (int(mem[pos + 2]) & 0x80) != 0:
+        return decode93a.prescan93a(mem, pos), True
+    if os_version in (rd.OS93A, rd.OS93B):
+        return decode93.prescan93(mem, pos), False
+    return prescan.prescan94(mem, pos), False
+
+
 class StreamBank:
-    """Prescanned + device-decoded streams: every registered stream frame
-    becomes one row of ``scaled`` [R, 256] (u16 storage in int16; row 0 is
-    the silent dummy), indexed by ``offsets[key] + frame``."""
+    """Prescanned streams, one row per stream frame, indexed by
+    ``offsets[key] + frame`` (row 0 is the silent dummy).  A 1994+ bank
+    decodes every row into ``scaled`` [R, 256] (u16 storage in int16); a
+    1993 bank keeps the bitstream and its index as the bank columns
+    ``cols`` (ops/decode93.py), which the session decode reads."""
 
     def __init__(self, os_version):
-        if os_version in (rd.OS93A, rd.OS93B):
-            raise NotImplementedError(
-                "1993-family session banks are not ported yet "
-                "(ROADMAP.md §1 item 6)")
         self.os_version = os_version
+        self.family93 = os_version in (rd.OS93A, rd.OS93B)
         self.keys = {}
         self._streams = []
 
@@ -56,13 +71,13 @@ class StreamBank:
         key = (id(mem), pos)
         if key in self.keys:
             return key
-        idx = prescan.prescan94(mem, pos)
-        if idx.error_frame >= 0:
+        idx, t1 = _prescan(self.os_version, mem, pos)
+        if getattr(idx, "error_frame", -1) >= 0:
             raise ValueError(f"stream error at frame {idx.error_frame}")
         data_end = int(idx.end_bit[-1] // 8 + 8) if idx.n_frames else pos + 18
         raw = bytes(mem[pos:data_end + 4]) + b"\xff" * 8
         self.keys[key] = len(self._streams)
-        self._streams.append((idx, raw, pos))
+        self._streams.append((idx, raw, pos, t1))
         return key
 
     def columns(self):
@@ -78,7 +93,7 @@ class StreamBank:
         total = 1                     # row 0 is the silent dummy row
         n_steps = 8
         for key, si in self.keys.items():
-            idx, raw, pos = self._streams[si]
+            idx, raw, pos, _ = self._streams[si]
             F = idx.n_frames
             rel_start = idx.start_bit.astype(np.int64) - pos * 8
             cols.append(dict(
@@ -113,17 +128,61 @@ class StreamBank:
             sub_tab=np.asarray([c["sub"] for c in cols], np.uint8),
             n_steps=n_steps)
 
+    def columns93(self):
+        """A 1993 bank's columns (numpy; ops/decode93.py's layout, row 0
+        silent): the streams' bytes concatenate into one pool with global
+        bit offsets, each stream frame is one row, and band_tab holds each
+        stream's 93 band layout (zeros for OS93a Type-1).  Sets
+        ``offsets``."""
+        offsets = {}
+        pool = []
+        n_pool = 0
+        z = cs.rows93(dict(frame_word=np.zeros(1), bit_rel=np.zeros((1, 16)),
+                           kw=np.zeros((1, 16)), prv_in=np.zeros((1, 16)),
+                           prv_dl=np.zeros((1, 16))), False)
+        z["kind_u8"][:] = decode93.ROW_SILENT
+        parts = [dict(z, sid=np.zeros(1, np.int32))]
+        tabs = []
+        total = 1
+        for key, si in self.keys.items():
+            idx, raw, pos, t1 = self._streams[si]
+            c = cs.rows93(cs.stream_columns(idx, t1, (n_pool - pos) * 8), t1)
+            c["sid"] = np.full(idx.n_frames, si, np.int32)
+            parts.append(c)
+            if t1:
+                tabs.append(np.zeros((16, 8), np.int32))
+            else:
+                tab = cs._stream93_band_tables(raw)[1]
+                cs.Flat93Sweep._check_layout(tab, idx)
+                tabs.append(cs.band_table(tab))
+            pool.append(raw)
+            n_pool += len(raw)
+            offsets[key] = total
+            total += idx.n_frames
+        pool.append(b"\xff" * 8)
+        out = {k: np.concatenate([c[k] for c in parts]) for k in parts[0]}
+        out["pool_u8"] = np.frombuffer(b"".join(pool), np.uint8)
+        out["band_tab"] = (np.stack(tabs) if tabs
+                           else np.zeros((1, 16, 8), np.int32))
+        self.offsets = offsets
+        return out
+
     def decode_all(self, device="cuda"):
-        """Decode every registered stream on ``device`` (the card unless
-        given) into ``scaled`` [R, 256]: one decode94_bank launch on a card.
-        The rows stay on the device."""
+        """Build the bank on ``device`` (the card unless given).  1994+:
+        decode every registered stream into ``scaled`` [R, 256], one
+        decode94_bank launch on a card.  1993: upload the bank columns
+        ``cols``.  The bank stays on the device."""
         dev = _device(device)
+        self.device = dev
+        if self.family93:
+            self.cols = {k: torch.tensor(np.ascontiguousarray(v), device=dev)
+                         for k, v in self.columns93().items()}
+            return self
         cols = self.columns()
         n_steps = cols.pop("n_steps")
         args = {k: torch.tensor(v, device=dev) for k, v in cols.items()}
         tabs = {k: t.to(dev) for k, t in codec_tables().items()}
         self.scaled = bd.decode94_bank(**args, n_steps=n_steps, tabs=tabs)
-        self.device = dev
         return self
 
     def total_rows(self):
@@ -161,6 +220,42 @@ class SessionDecoder(nn.Module):
                       overlap0)
 
 
+class SessionDecoder93(nn.Module):
+    """The device half of the 1993 session path (the reference's
+    ``device_decode93``).  Buffers: the bank's columns (the byte pool, the
+    per-row columns, band_tab) and the codec tables of codec_tables93
+    (the pair table among them), on ``device`` (the bank's unless given).
+    ``plain=True`` runs the plain PyTorch versions of the kernels on any
+    device (the comparison path)."""
+
+    def __init__(self, bank, device=None, plain=False):
+        super().__init__()
+        self.plain = plain
+        dev = bank.device if device is None else _device(device)
+        for name, t in list(bank.cols.items()) + list(
+                cs.codec_tables93().items()):
+            self.register_buffer(name, t.to(dev))
+
+    def forward(self, rows, mix, vol_shift, sid, overlap0=None):
+        """As SessionDecoder.forward: rows/mix [F, C], vol_shift [F], sid
+        [F], overlap0 [G, 16] or None.  Each frame starts from silence and
+        decodes its voices in channel order."""
+        bufs = dict(self.named_buffers())
+        decode = decode93.decode93_fb_plain if self.plain \
+            else decode93.decode93_fb
+        to_pcm = tf.transform93_pcm_plain if self.plain \
+            else tf.transform93_pcm
+        fb = decode(bufs, rows, mix, bufs)
+        return to_pcm(fb, vol_shift, sid, bufs, overlap0)
+
+
+def session_decoder(bank, device=None, plain=False):
+    """The session decoder of the bank's family, on ``device`` (the
+    bank's unless given)."""
+    cls = SessionDecoder93 if bank.family93 else SessionDecoder
+    return cls(bank, device, plain=plain)
+
+
 def assemble_controls(tracer: ControlTracer, bank: StreamBank):
     """Convert the VM trace into dense control arrays.
 
@@ -181,10 +276,10 @@ def device_decode(decoder, rows, mix, vol_shift, overlap0=None):
     """Decode T frames of one session on the decoder's device; bit-exact
     with the scalar decoder.
 
-    rows/mix [T, C] (C <= 8), vol_shift [T], overlap0 [16] carried state
-    (zeros when None); numpy or tensors.  Returns (pcm [T, 240], last_ov
-    [16]) int32 tensors, u16 storage."""
-    dev = decoder.scaled.device
+    decoder: a session_decoder; rows/mix [T, C] (C <= 8), vol_shift [T],
+    overlap0 [16] carried state (zeros when None); numpy or tensors.
+    Returns (pcm [T, 240], last_ov [16]) int32 tensors, u16 storage."""
+    dev = next(decoder.buffers()).device
     as_t = lambda a: torch.as_tensor(np.asarray(a, np.int32), device=dev)
     rows, mix, vol_shift = as_t(rows), as_t(mix), as_t(vol_shift)
     ov = (torch.zeros((1, 16), dtype=torch.int32, device=dev)
@@ -219,10 +314,10 @@ def decode_standalone(streams, os_version=rd.OS94, default_volume=0x67,
     for (mem, ch, lvl) in streams:
         tracer.load_audio_stream(ch, mem, mixing_level=lvl)
     if n_frames is None:
-        n_frames = 4 + max(prescan.prescan94(mem, 0).n_frames
+        n_frames = 4 + max(_prescan(os_version, mem, 0)[0].n_frames
                            for (mem, _, _) in streams)
     tracer.trace_frames(n_frames, events=events)
 
     rows, mix, vol = assemble_controls(tracer, bank)
-    pcm, _ = device_decode(SessionDecoder(bank), rows, mix, vol)
+    pcm, _ = device_decode(session_decoder(bank), rows, mix, vol)
     return to_int16(pcm).reshape(-1).cpu().numpy()

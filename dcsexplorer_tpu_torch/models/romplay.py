@@ -1,11 +1,12 @@
 """ROM-driven playback on the card: command sessions, autoplay, and batched
-session serving (1994+ family).
+session serving (the 1994+ and the 1993 families).
 
 Counterpart of ``dcsexplorer_tpu/models/romplay.py``.  The host VM control
 tracer (the Python ``ControlTracer`` for a single session, the native one
 for a served batch) decides which bank row plays on which channel at what
 mixing multiplier; the device half (``pipeline.SessionDecoder``) turns those
-controls into PCM.  A served batch of S sessions × T frames travels as one
+controls into PCM (``pipeline.SessionDecoder93`` for a 1993 ROM).  A
+served batch of S sessions × T frames travels as one
 uint8 control wire, per-lane linear segments plus the volume column
 (``pack_controls_wire``), which ``segments94`` expands on the card into
 dense per-frame rows, mixes and volume shifts.
@@ -15,6 +16,9 @@ tensors (``ops/kernels.py``), its plain PyTorch version on CPU tensors:
 
     segments94 (wire -> rows, mix, vol) -> session_mix94 -> transform94_pcm
     with sid = session index (each session starts from a zero overlap state)
+
+and for a 1993 ROM, segments94 -> decode93_fb -> transform93_pcm likewise
+(the wire does not depend on the family).
 
 The entry points (``build_rom_bank``, ``play_session``, ``autoplay``,
 ``SessionServer``) run on the card unless the caller names another device.
@@ -210,7 +214,7 @@ class SessionServer:
         self.bank = bank if bank is not None else build_rom_bank(rom_set, dev)
         if self.bank.total_rows() >= (1 << 16):
             raise ValueError("u16 row ids need a bank under 64Ki rows")
-        self.decoder = pl.SessionDecoder(self.bank, dev, plain=plain)
+        self.decoder = pl.session_decoder(self.bank, dev, plain=plain)
         self._addr_tab, self._off_tab = nt.stream_row_table(rom_set,
                                                             self.bank)
         self._tracer = nt.NativeControlTracer(
@@ -343,7 +347,7 @@ def play_session(rom_set, events, n_frames, bank=None, default_volume=0x67,
     tracer.trace_frames(n_frames, events=events)
 
     rows, mix, vol = pl.assemble_controls(tracer, bank)
-    pcm, _ = pl.device_decode(pl.SessionDecoder(bank), rows, mix, vol)
+    pcm, _ = pl.device_decode(pl.session_decoder(bank), rows, mix, vol)
     return pl.to_int16(pcm).reshape(-1).cpu().numpy(), tracer
 
 

@@ -1,7 +1,8 @@
 """Native host runtime of the port: the C++ stream indexer and VM tracer.
 
 At first use, g++ builds ``build/torch_native/libdcs_host.so`` from
-``src/dcs_native.cpp`` (the 1994+ stream indexer) and ``src/tracer.cpp``
+``src/dcs_native.cpp`` (the stream indexers of the 1994+ and the 1993
+families) and ``src/tracer.cpp``
 (the runtime VM tracer), with a table header that ``gen_tables`` writes from
 the port's own ``format/tables.py``.  It rebuilds when a source is newer
 than the library.  The flags are plain ``-O3`` without ``-march``, so one
@@ -26,6 +27,8 @@ _P, _I = C.c_void_p, C.c_int
 _SIGNATURES = {
     "dcs94_frame_count": (C.c_int, [C.c_char_p, _I, _I]),
     "dcs94_decode_dense": (C.c_int, [C.c_char_p, _I, _I] + [_P] * 10),
+    "dcs93_index": (C.c_int, [C.c_char_p, _I, _I] + [_P] * 11),
+    "dcs93a_index": (C.c_int, [C.c_char_p, _I, _I] + [_P] * 5),
     "dcstr_create": (_P, [_I] * 5),
     "dcstr_destroy": (None, [_P]),
     "dcstr_add_chip": (None, [_P, _I, C.c_char_p, C.c_int64]),

@@ -1,5 +1,5 @@
 """Generate the C header of DCS format tables for the native runtime, from
-the port's own ``format/tables.py`` (the 1994+ tables ``src/dcs_native.cpp``
+the port's own ``format/tables.py`` (the tables ``src/dcs_native.cpp``
 reads)."""
 
 import os
@@ -30,6 +30,10 @@ def emit(path):
     out.append(arr("kXlat02", T.XLAT02))
     out.append(arr("kXlat35", T.XLAT35))
     out.append(arr("kXlat6F", T.XLAT6F))
+    out.append(arr("kHuffTree93", T.HUFFTREE93))
+    out.append(arr("kOs93aInputsPerBand", T.OS93A_INPUTS_PER_BAND))
+    out.append(arr("kOs93aBandBitsBooks", T.OS93A_BAND_BITS_CODEBOOKS))
+    out.append(arr("kOs93aScaleBook", T.OS93A_SCALE_CODEBOOK))
     os.makedirs(os.path.dirname(path), exist_ok=True)
     tmp = f"{path}.{os.getpid()}.tmp"
     with open(tmp, "w") as f:

@@ -1,7 +1,8 @@
 // Native host runtime of the port: stream indexing for the 1994+ DCS
-// stream family (dcs94_frame_count, dcs94_decode_dense).
+// stream family (dcs94_frame_count, dcs94_decode_dense) and the 1993
+// family (dcs93_index, dcs93a_index).
 //
-// A copy of the 1994+ part of dcsexplorer_tpu/native/src/dcs_native.cpp,
+// A copy of the indexers of dcsexplorer_tpu/native/src/dcs_native.cpp,
 // kept in the port so that it builds and loads without the JAX package.
 // The walk over the variable-length bitstream is the one serial part of
 // the codec; it runs here on the host and yields the per-frame index the
@@ -319,6 +320,236 @@ int dcs94_decode_dense(const uint8_t* mem, int len, int pos,
         meta[1] = sub_type;
         meta[2] = error_frame;
         meta[3] = max_symbols;
+    }
+    return 0;
+}
+
+}  // extern "C"
+
+// ---------------------------------------------------------------------------
+// 1993-family stream indexing (OS93a format 0, OS93b formats 0/1, and the
+// OS93a Type-1 pair-table format).  Counterparts of ops/decode93.prescan93
+// and ops/decode93a.prescan93a; validated field-identically against them.
+
+namespace {
+
+inline int32_t getSigned(BitReader& bit, int n) {
+    uint32_t v = bit.get(n);
+    return (static_cast<int32_t>(v << (32 - n))) >> (32 - n);
+}
+
+// read a 93 band-type Huffman delta; 'invert' codewords flip the subtype
+inline int readHuff93(BitReader& bit, int* sub) {
+    int32_t ele = kHuffTree93[0];
+    for (;;) {
+        int b = static_cast<int>(bit.get(1));
+        int idx = b ? (ele >> 8) & 0x7F : ele & 0xFF;
+        ele = kHuffTree93[idx];
+        if (ele & 0x8000) break;
+    }
+    int val = ele & 0x3F;
+    if (val < 0x1E) return val - 0x0F;
+    *sub = (*sub != 0) ? 0 : 1;
+    return val - 0x2E;
+}
+
+enum { K_NONE = 0, K_DATA0 = 1, K_DATA1 = 2, K_DATA2 = 3,
+       K_REPEAT = 4, K_RAMP = 5 };
+
+}  // namespace
+
+extern "C" {
+
+// Index a 93-format stream.  Per (frame, band slot 0..15) outputs:
+//   kind/width/n_samp/out_start/out_inc/scale/prv_in/prv_dl  [F*16] int32
+//   bit_start [F*16] int64;  end_bit [F] int64;  meta[1] = {fmt_type}
+int dcs93_index(const uint8_t* mem, int len, int pos, int32_t* meta,
+                int32_t* kind, int32_t* width, int32_t* n_samp,
+                int64_t* bit_start, int32_t* out_start, int32_t* out_inc,
+                int32_t* scale_out, int32_t* prv_in_out, int32_t* prv_dl_out,
+                int64_t* end_bit) {
+    int F = dcs94_frame_count(mem, len, pos);
+    if (F < 0) return -1;
+    int hdr_pos = pos + 2;
+    auto hdrByte = [&](int i) -> int {
+        return hdr_pos + i < len ? mem[hdr_pos + i] : 0xFF;
+    };
+    int fmt_type = (hdrByte(0) & 0x80) >> 7;
+    if (meta) meta[0] = fmt_type;
+
+    BitReader bit;
+    bit.init(mem, len, hdr_pos + 16);
+    int32_t band_type_acc[16] = {0};
+
+    for (int f = 0; f < F; ++f) {
+        int band_sub_type = (fmt_type == 1) ? 0 : 2;
+        bool is_first = true;
+        int32_t prv_in = 0, prv_dl = 0;
+        bool reuse = false;
+        int32_t cur_type = 0;
+        int out_idx = 1;
+        for (int band = 0; band < 16; ++band) {
+            int cell = f * 16 + band;
+            int cur_hdr = hdrByte(band) & 0x7F;
+            if (cur_hdr == 0x7F) break;
+            int sf_index = cur_hdr & 3;
+            int sf_shift = ((cur_hdr >> 2) & 0xF) - 0xF;
+            int stride = cur_hdr >> 6;
+            uint32_t mant = static_cast<uint32_t>(kScaleMantissa[sf_index]);
+            int32_t scale = static_cast<int32_t>(
+                (sf_shift >= 0 ? mant << sf_shift : mant >> -sf_shift)
+                & 0xFFFF);
+
+            int n, inc, fix, stride_skip;
+            if (fmt_type == 0) {
+                if (stride == 0) { n = 16; inc = 1; fix = 0; stride_skip = 16; }
+                else { ++out_idx; n = 16; inc = 2; fix = -1; stride_skip = 31; }
+            } else {
+                if (stride == 0) {
+                    n = is_first ? 15 : 16;
+                    inc = 1; fix = 0; stride_skip = n;
+                } else { n = 8; inc = 2; fix = 0; stride_skip = 8; }
+            }
+
+            if (reuse) reuse = bit.get(1) != 0;
+            if (!reuse) {
+                if (fmt_type == 0) {
+                    if (bit.get(1)) {
+                        static const int incTab[3] = {1, 2, 0};
+                        static const int decTab[3] = {2, 0, 1};
+                        band_sub_type = bit.get(1)
+                            ? incTab[band_sub_type] : decTab[band_sub_type];
+                    }
+                    cur_type = static_cast<int32_t>(bit.get(4));
+                } else {
+                    int delta = readHuff93(bit, &band_sub_type);
+                    band_type_acc[band] =
+                        (band_type_acc[band] + delta) & 0xFFFF;
+                    cur_type = band_type_acc[band];
+                }
+            }
+
+            if (scale_out) scale_out[cell] = scale;
+            if (out_inc) out_inc[cell] = inc;
+            if (prv_in_out) prv_in_out[cell] = prv_in;
+            if (prv_dl_out) prv_dl_out[cell] = prv_dl;
+
+            if (cur_type == 0) {
+                reuse = true;
+                if (band_sub_type == 0) {
+                    if (kind) kind[cell] = K_NONE;
+                    out_idx += stride_skip;
+                    prv_in = 0;
+                    prv_dl = 0;
+                } else if (band_sub_type == 1) {
+                    if (kind) kind[cell] = K_REPEAT;
+                    if (n_samp) n_samp[cell] = n;
+                    if (out_start) out_start[cell] = out_idx;
+                    out_idx += n * inc + fix;
+                    prv_dl = 0;
+                } else {
+                    if (kind) kind[cell] = K_RAMP;
+                    if (n_samp) n_samp[cell] = n;
+                    if (out_start) out_start[cell] = out_idx;
+                    out_idx += n * inc + fix;
+                    prv_in = (prv_in + n * prv_dl) & 0xFFFF;
+                }
+            } else {
+                int w = cur_type + (fmt_type == 0 ? 1 : 0);
+                if (w > 24) return -2;   // garbage width: caller falls back
+                if (kind)
+                    kind[cell] = (band_sub_type == 0) ? K_DATA0
+                        : (band_sub_type == 1) ? K_DATA1 : K_DATA2;
+                if (width) width[cell] = w;
+                if (n_samp) n_samp[cell] = n;
+                if (bit_start) bit_start[cell] = bit.cursor();
+                if (out_start) out_start[cell] = out_idx;
+                int32_t last = 0, second = 0;
+                for (int i = 0; i < n; ++i) {
+                    int32_t v = getSigned(bit, w) & 0xFFFF;
+                    if (band_sub_type == 0) {
+                        second = last;
+                        last = v;
+                    } else if (band_sub_type == 1) {
+                        prv_dl = v;
+                        prv_in = (prv_in + v) & 0xFFFF;
+                    } else {
+                        prv_dl = (prv_dl + v) & 0xFFFF;
+                        prv_in = (prv_in + prv_dl) & 0xFFFF;
+                    }
+                }
+                if (band_sub_type == 0) {
+                    prv_in = last;
+                    prv_dl = (last - second) & 0xFFFF;
+                }
+                out_idx += n * inc + fix;
+            }
+            is_first = false;
+        }
+        if (end_bit) end_bit[f] = bit.cursor();
+    }
+    return 0;
+}
+
+// Index an OS93a Type-1 stream.  Outputs per (frame, band 0..17):
+//   bits/scale32 [F*18] int32; bit_start [F*18] int64;
+//   end_bit [F] int64; meta[1] = {selector}
+int dcs93a_index(const uint8_t* mem, int len, int pos, int32_t* meta,
+                 int32_t* bits_out, int64_t* bit_start,
+                 int32_t* scale32_out, int64_t* end_bit) {
+    int F = dcs94_frame_count(mem, len, pos);
+    if (F < 0) return -1;
+    int hdr = pos + 2 < len ? mem[pos + 2] : 0xFF;
+    int selector = hdr & 0x60;
+    int num_bands = hdr & 0x1F;
+    if (num_bands > 18) num_bands = 18;
+    if (meta) meta[0] = selector;
+    int book_base = selector >> 1;
+
+    BitReader bit;
+    bit.init(mem, len, pos + 3);
+
+    for (int f = 0; f < F; ++f) {
+        int prv_scale_code = 0x1A;
+        for (int band = 0; band < num_bands; ++band) {
+            int cell = f * 18 + band;
+            int look = static_cast<int>(bit.peek(4));
+            int band_bits = kOs93aBandBitsBooks[(book_base + look) * 2]
+                & 0xFFFF;
+            bit.get(static_cast<int>(
+                kOs93aBandBitsBooks[(book_base + look) * 2 + 1]));
+            if (band_bits == 0xFFFF) break;
+            if (band_bits == 0) continue;
+
+            int si = static_cast<int>(bit.peek(4));
+            const int32_t* sc = &kOs93aScaleBook[si * 3];
+            bit.get(static_cast<int>(sc[1]));
+            if ((sc[0] & 0xFFFF) == 0xFFFF) {
+                int s2 = static_cast<int>(sc[2]) + static_cast<int>(bit.peek(4));
+                sc = &kOs93aScaleBook[s2 * 3];
+                bit.get(static_cast<int>(sc[1]) - 4);
+            }
+
+            int scale_code = prv_scale_code + static_cast<int>(sc[0]) - 1
+                + band_bits * 2;
+            if (scale_code > 0x39) scale_code -= 0x36;
+            prv_scale_code = scale_code - band_bits * 2;
+
+            int shift = scale_code >> 2;
+            int exponent = scale_code & 3;
+            uint32_t scale = 0x8000;
+            for (int e = 0; e < exponent; ++e)
+                scale = (scale * 0x9838u) >> 15;
+            scale = static_cast<uint32_t>(
+                (static_cast<uint64_t>(scale) << shift) & 0xFFFFFFFFu);
+
+            int n = static_cast<int>(kOs93aInputsPerBand[band]);
+            if (bits_out) bits_out[cell] = band_bits;
+            if (scale32_out) scale32_out[cell] = static_cast<int32_t>(scale);
+            if (bit_start) bit_start[cell] = bit.cursor();
+            bit.skip(static_cast<int64_t>(band_bits) * n);
+        }
+        if (end_bit) end_bit[f] = bit.cursor();
     }
     return 0;
 }

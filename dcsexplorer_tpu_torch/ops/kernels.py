@@ -28,7 +28,7 @@ _REPO = os.path.dirname(_PKG)
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("decode94_fb.cu", "decode94_bank.cu", "dequant_mix.cu",
            "segments94.cu", "session_mix94.cu", "transform94.cu",
-           "transform94_pcm.cu")
+           "transform94_pcm.cu", "decode93_fb.cu", "transform93_pcm.cu")
 HEADERS = ("dcs_fixmath.cuh", "decode94_walk.cuh")
 LIB_PATH = os.path.join(_REPO, "build", "torch_kernels", "libdcs_torch.so")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -36,14 +36,17 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v")
 
 # launches per kernel; each wrapper adds one where it launches its kernel
-# (transform94_pcm_carry: transform94_pcm's instance with a carried state)
+# (transform9x_pcm_carry: transform9x_pcm's instance with a carried state)
 LAUNCHES = {"decode94_fb": 0, "decode94_bank": 0, "dequant_mix": 0,
             "segments94": 0, "session_mix94": 0, "transform94_planar": 0,
-            "transform94_pcm": 0, "transform94_pcm_carry": 0}
+            "transform94_pcm": 0, "transform94_pcm_carry": 0,
+            "decode93_fb": 0, "transform93_pcm": 0,
+            "transform93_pcm_carry": 0}
 
-# frames per block of csrc/transform94_pcm.cu (its kTile): a block
-# transforms the frame before its tile again for the overlap carry
-TRANSFORM94_PCM_TILE = 64
+# frames per block of csrc/transform94_pcm.cu and transform93_pcm.cu (their
+# kTile): a block transforms the frame before its tile again for the
+# overlap carry
+TRANSFORM94_PCM_TILE = TRANSFORM93_PCM_TILE = 64
 
 _lib = None
 
@@ -70,6 +73,14 @@ _SIGNATURES = {
     # fb, vol_shift, sid, tables (_PCM_TABLES order), overlap0 (nullable),
     # last_ov (nullable), n_groups, pcm, n_frames, stream
     "dcs_transform94_pcm": [_P, _P, _P, *[_P] * 8, _P, _P, _I, _P, _I, _P],
+    # pool, pool_len, frame_word, sid, kind_u8, kw_u8, bit_rel, prv,
+    # code_u8, band_tab, n_streams, pair, inputs, rows (nullable), mix, out,
+    # n_frames, n_ch, n_rows, stream
+    "dcs_decode93_fb": [_P, _LL, *[_P] * 8, _I, _P, _P, _P, _P, _P, _I, _I,
+                        _I, _P],
+    # fb, vol_shift, sid, tables (_PCM93_TABLES order), overlap0 (nullable),
+    # last_ov (nullable), n_groups, pcm, n_frames, stream
+    "dcs_transform93_pcm": [_P, _P, _P, *[_P] * 5, _P, _P, _I, _P, _I, _P],
 }
 
 
@@ -363,3 +374,90 @@ def session_mix94(scaled, rows, mix):
         _launch("session_mix94", "dcs_session_mix94", dev, scaled.data_ptr(),
                 R, rows.data_ptr(), mix.data_ptr(), out.data_ptr(), F, C)
     return out
+
+
+def decode93_fb(pool_u8, frame_word, sid, kind_u8, kw_u8, bit_rel, prv,
+                code_u8, band_tab, rows, mix, pair, inputs):
+    """1993-family frame buffers on the card (csrc/decode93_fb.cu): the bank
+    columns (ops/decode93.py) and rows [F, C] of them per output frame and
+    voice (None: the flat sweep, row f for frame f, mix [F]) with their
+    mixes -> [F, 512] int32; see decode93.decode93_fb_plain."""
+    R = frame_word.shape[0]
+    S = band_tab.shape[0]
+    dev = pool_u8.device
+    _check("pool_u8", pool_u8, torch.uint8, (pool_u8.numel(),))
+    _check("frame_word", frame_word, torch.int32, (R,), dev)
+    _check("sid", sid, torch.int32, (R,), dev)
+    _check("kind_u8", kind_u8, torch.uint8, (R,), dev)
+    _check("kw_u8", kw_u8, torch.uint8, (R, 18), dev)
+    _check("bit_rel", bit_rel, torch.int32, (R, 18), dev)
+    _check("prv", prv, torch.int32, (R, 16), dev)
+    _check("code_u8", code_u8, torch.uint8, (R, 18), dev)
+    _check("band_tab", band_tab, torch.int32, (S, 16, 8), dev)
+    _check("pair", pair, torch.int32, (2048,), dev)
+    _check("inputs", inputs, torch.int32, (18,), dev)
+    if rows is None:
+        F, C = R, 1
+        _check("mix", mix, torch.int32, (R,), dev)
+    else:
+        F, C = rows.shape
+        _check("rows", rows, torch.int32, (F, C), dev)
+        _check("mix", mix, torch.int32, (F, C), dev)
+        if not 1 <= C <= MAX_CHANNELS:
+            raise ValueError(f"{C} channels; expected 1..8")
+    # the kernel loads 4-byte pool words and 16-byte band-table rows
+    for name, t, align in (("pool_u8", pool_u8, 4), ("band_tab", band_tab, 16)):
+        if t.data_ptr() % align:
+            raise ValueError(f"{name}: not {align}-byte aligned")
+    out = torch.empty((F, 512), dtype=torch.int32, device=dev)
+    if F:
+        _launch("decode93_fb", "dcs_decode93_fb", dev, pool_u8.data_ptr(),
+                pool_u8.numel(), frame_word.data_ptr(), sid.data_ptr(),
+                kind_u8.data_ptr(), kw_u8.data_ptr(), bit_rel.data_ptr(),
+                prv.data_ptr(), code_u8.data_ptr(), band_tab.data_ptr(), S,
+                pair.data_ptr(), inputs.data_ptr(),
+                None if rows is None else rows.data_ptr(), mix.data_ptr(),
+                out.data_ptr(), F, C, R)
+    return out
+
+
+# the codec tables transform93_pcm reads, in the order of its C arguments
+_PCM93_TABLES = (("cos", 128), ("sin", 128), ("ovl_new", 16), ("ovl_old", 16),
+                 ("br93_half", 256))
+
+
+def transform93_pcm(fb, vol_shift, sid, tabs, overlap0=None):
+    """1993 frame buffers -> PCM on the card (csrc/transform93_pcm.cu): the
+    transform, overlap resolve and collection in one launch; see
+    transform.transform93_pcm_plain for the contract.  With overlap0
+    [G, 16] the carry at a run's start is overlap0[sid], and the result is
+    (pcm, last_ov [G, 16])."""
+    F = fb.shape[0]
+    dev = fb.device
+    _check("fb", fb, torch.int32, (F, 512))
+    _check("vol_shift", vol_shift, torch.int32, (F,), dev)
+    _check("sid", sid, torch.int32, (F,), dev)
+    for name, n in _PCM93_TABLES:
+        _check(name, tabs[name], torch.int32, (n,), dev)
+    pcm = torch.empty((F, 240), dtype=torch.int32, device=dev)
+    aligned = [("fb", fb), ("pcm", pcm)]
+    last_ov = None
+    if overlap0 is not None:
+        _check("overlap0", overlap0, torch.int32, (overlap0.shape[0], 16),
+               dev)
+        last_ov = overlap0.clone()        # ids with no frame keep theirs
+        aligned.append(("overlap0", overlap0))
+    # the kernel loads 16-byte words of fb and overlap0, stores them to pcm
+    for name, t in aligned:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: not 16-byte aligned")
+    if F:
+        _launch("transform93_pcm" if overlap0 is None
+                else "transform93_pcm_carry", "dcs_transform93_pcm", dev,
+                fb.data_ptr(), vol_shift.data_ptr(), sid.data_ptr(),
+                *[tabs[name].data_ptr() for name, _ in _PCM93_TABLES],
+                None if overlap0 is None else overlap0.data_ptr(),
+                None if last_ov is None else last_ov.data_ptr(),
+                0 if overlap0 is None else overlap0.shape[0],
+                pcm.data_ptr(), F)
+    return pcm if overlap0 is None else (pcm, last_ov)

@@ -189,3 +189,166 @@ def transform94_pcm(fb, vol_shift, sid, tabs, overlap0=None):
     if fb.device.type == "cpu":
         return transform94_pcm_plain(fb, vol_shift, sid, tabs, overlap0)
     return kernels.transform94_pcm(fb, vol_shift, sid, tabs, overlap0)
+
+
+# ----------------------------------------------------------------------
+# 1993 family: transform93_raw, overlap_resolve93(_flat), transform93_pcm
+
+def _i32(x):
+    """The int32 value of the low 32 bits (the reference's wrap-around)."""
+    return ((x & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000
+
+
+def _mul_round93(a, b):
+    """MR1 of round((s16(a) * s16(b)) << 1) with the MAC's tie rule."""
+    prod = (s16(a) * s16(b)) << 1
+    res = prod + 0x8000
+    res = torch.where((prod & M16) == 0x8000, res & ~0x10000, res)
+    return (res >> 16) & M16, res
+
+
+def _taylor_sqrt93(fb0, fb1):
+    """The magnitude fix-up of slot 0 (reference :633-704): fb0, fb1 [B]
+    u16 storage -> the replacement value of slot 0, u16 storage.  The
+    normalize loop runs its 31 steps on the int32 value; an even exponent
+    halves exactly (floor); AR == 0 skips the series."""
+    ar = s16(fb0)
+    as_flag = ar < 0
+    ar = torch.where(as_flag, -ar, ar) & M16
+    v = _i32((s16(fb1) * s16(fb1) + s16(ar) * s16(ar)) << 1)
+
+    exp = torch.zeros_like(v)
+    xx = v
+    for _ in range(31):
+        more = torch.where(xx < 0, (xx & 0x40000000) != 0,
+                           (exp > -31) & ((xx & 0x40000000) == 0))
+        exp = torch.where(more, exp - 1, exp)
+        xx = torch.where(more, _i32(xx << 1), xx)
+    mant = torch.where(exp < 0, _i32(v << -exp), v)          # exp >= -31
+    ar2 = (mant >> 16) & M16
+
+    # 5-term Taylor series in the accumulator
+    mr = 0x0D490000 + ((0x5D1D * s16(ar2)) << 1)
+    mf = ar2
+    for coef in (-22035, 0x46D6, -8790, 0x072D):
+        mf, _ = _mul_round93(ar2, mf)
+        mr = mr + ((coef * s16(mf)) << 1)
+
+    # MultiplyAndRound(MR1(mr), 0x5A82) replaces mr where exponent is odd
+    odd = (exp & 1) != 0
+    _, res = _mul_round93((mr >> 16) & M16, 0x5A82)
+    mr = torch.where(odd, res, mr)
+    exponent = torch.div(torch.where(odd, exp + 1, exp), 2,
+                         rounding_mode="floor") + 1
+    # BitShiftSigned32 of the low 32 bits of mr
+    low = _i32(mr)
+    shifted = torch.where(exponent >= 0,
+                          _i32(low << exponent.clamp(0, 31)),
+                          low >> (-exponent).clamp(0, 31))
+    arf = (shifted >> 16) & M16
+    arf = torch.where(as_flag, (-s16(arf)) & M16, arf)
+    return torch.where(ar2 == 0, ar2, arf)
+
+
+def transform93_raw_plain(fb, vol_shift, tabs):
+    """The 1993 inverse transform: fb [B, 512] u16 storage (words 0..255
+    are read), vol_shift [B].  Returns raw [B, 256] int64 time words in
+    natural order, volume-shifted: outputs 0..239, then the 16-word overlap
+    tail before its blend.
+
+    Planes re[k] = fb[2k], im[k] = fb[2k+1]: the slot-0 fix-up, the
+    256 -> 512 expansion (the later write wins at the two colliding slots:
+    re[192] takes yr - xr, im[64] takes yi - xi), seven radix-2 stages with
+    wrapping (unsaturated) arithmetic, then the volume shift and the
+    bit-reversed collection from the re plane (tabs["br93_half"])."""
+    B = fb.shape[0]
+    fb = fb.long()
+    ar = _taylor_sqrt93(fb[:, 0], fb[:, 1])
+    re0, im0 = fb[:, 0::2], fb[:, 1::2]
+    xr, xi = s16(re0[:, 1:65]), s16(im0[:, 1:65])
+    yr = s16(torch.flip(re0[:, 64:128], [1]))
+    yi = s16(torch.flip(im0[:, 64:128], [1]))
+    add_r, sub_r, bus_r = (xr + yr) & M16, (xr - yr) & M16, (yr - xr) & M16
+    add_i, sub_i, bus_i = (xi + yi) & M16, (xi - yi) & M16, (yi - xi) & M16
+    arc = ar[:, None]
+    z1 = torch.zeros_like(arc)
+    re = torch.cat([arc, add_r, torch.flip(add_r, [1])[:, 1:],
+                    arc, sub_r[:, :63], torch.flip(bus_r, [1])], 1)
+    im = torch.cat([z1, sub_i[:, :63], torch.flip(bus_i, [1]),
+                    z1, add_i, torch.flip(add_i, [1])[:, 1:]], 1)
+
+    n_part, part = 2, 0x80
+    for _ in range(7):
+        r = re.reshape(B, n_part, part)
+        i_ = im.reshape(B, n_part, part)
+        h = part // 2
+        c_cos = tabs["cos"][:n_part].reshape(1, n_part, 1)
+        c_sin = tabs["sin"][:n_part].reshape(1, n_part, 1)
+        t_re, t_im = rotate_round(r[:, :, h:], i_[:, :, h:], c_cos, c_sin)
+        ur, ui = s16(r[:, :, :h]), s16(i_[:, :, :h])
+        re = torch.cat([(ur - t_re) & M16, (ur + t_re) & M16], 2).reshape(B,
+                                                                          256)
+        im = torch.cat([(ui - t_im) & M16, (ui + t_im) & M16], 2).reshape(B,
+                                                                          256)
+        n_part *= 2
+        part //= 2
+    return volume_shift(re[:, tabs["br93_half"].long()],
+                        vol_shift.reshape(B, 1))
+
+
+def _resolve93(raw, stream_start, tabs, carry0=None):
+    """Blend each frame's 16 head words with the previous frame's 16 tail
+    words (natural order; ovl_new on the new word, ovl_old, the reversed
+    window, on the carried one).  Where stream_start holds, the carried
+    words are carry0's row (zeros when None).  Returns pcm [F, 240] int32."""
+    heads, tails = raw[:, :16], raw[:, 240:]
+    carried = torch.cat([torch.zeros_like(tails[:1]), tails[:-1]], 0)
+    start = 0 if carry0 is None else carry0.long()
+    carried = torch.where(stream_start[:, None], start, carried)
+    blended = overlap_mix(heads, carried, tabs["ovl_new"].reshape(1, 16),
+                          tabs["ovl_old"].reshape(1, 16))
+    return torch.cat([blended, raw[:, 16:240]], 1).int()
+
+
+def overlap_resolve93_flat_plain(raw, stream_start, tabs):
+    """Flat-axis overlap resolve of transform93_raw_plain's output: the
+    carried tail zeroes at each stream's first frame.  raw [F, 256],
+    stream_start [F] bool.  Returns pcm [F, 240] int32 (u16 storage)."""
+    return _resolve93(raw, stream_start, tabs)
+
+
+def overlap_resolve93_plain(raw, overlap0, tabs):
+    """Overlap resolve of F consecutive frames of ONE stream from a carried
+    state overlap0 [16].  Returns (pcm [F, 240], the last tail [16])."""
+    start = torch.zeros(raw.shape[0], dtype=torch.bool, device=raw.device)
+    start[:1] = True
+    pcm = _resolve93(raw, start, tabs, overlap0.reshape(1, 16))
+    return pcm, raw[-1, 240:].int()
+
+
+def transform93_pcm_plain(fb, vol_shift, sid, tabs, overlap0=None):
+    """Plain version of the transform93_pcm kernel: transform93_raw, then
+    the overlap resolve with the carry reset where the stream id changes
+    (and at frame 0).  fb [N, 512]; vol_shift [N]; sid [N].  Returns pcm
+    [N, 240] int32 (u16 storage); with overlap0 [G, 16] (the carried state
+    of each id; sid < G, one run of frames each) the carry at a run's start
+    is overlap0[sid], and the result is (pcm, last_ov [G, 16]): each run's
+    last tail at its id, overlap0's row for an id with no frames."""
+    raw = transform93_raw_plain(fb, vol_shift, tabs)
+    starts = band_decode.stream_starts(sid)
+    if overlap0 is None:
+        return overlap_resolve93_flat_plain(raw, starts, tabs)
+    sid = sid.long()
+    pcm = _resolve93(raw, starts, tabs, overlap0[sid])
+    last = torch.cat([starts[1:], starts.new_ones(1)])
+    last_ov = overlap0.clone()
+    last_ov[sid[last]] = raw[last, 240:].int()
+    return pcm, last_ov
+
+
+def transform93_pcm(fb, vol_shift, sid, tabs, overlap0=None):
+    """1993 frame buffers -> PCM (see transform93_pcm_plain): plain version
+    for CPU tensors, the CUDA kernel for CUDA tensors."""
+    if fb.device.type == "cpu":
+        return transform93_pcm_plain(fb, vol_shift, sid, tabs, overlap0)
+    return kernels.transform93_pcm(fb, vol_shift, sid, tabs, overlap0)

@@ -14,9 +14,13 @@ not a multiple of 4, random prior frame buffers, saturating frame buffers
 and volume shifts past 31, stream starts at the transform-to-PCM kernel's
 tile edges; for the session path, bank rows over the whole u16 range,
 segment tables of 1 to 255 entries, carried overlap states with sessions
-crossing tiles, and a served batch on the card against the CPU.  Every
-comparison is bit for bit.  chip_smoke.py covers the real catalog and the
-full-width session6 batch.
+crossing tiles, and a served batch on the card against the CPU; for the
+1993 family, bank rows of both kinds over random chain states and scale
+codes in C = 1, 6 and 8 voices, row 0 and all-silent frames, a pool that
+ends inside a frame, the transform-to-PCM kernel at its tile edges with and
+without a carried state, the flat sweep and a served batch on the card
+against the CPU.  Every comparison is bit for bit.  chip_smoke.py covers
+the real catalogs and the full-width session6 and session93a batches.
 """
 
 import glob
@@ -26,9 +30,11 @@ import numpy as np
 import pytest
 import torch
 
+from dcsexplorer_tpu_torch.models import catalogsweep as cs
 from dcsexplorer_tpu_torch.models import flatsweep as fs
 from dcsexplorer_tpu_torch.models import pipeline, romplay
 from dcsexplorer_tpu_torch.ops import band_decode as bd
+from dcsexplorer_tpu_torch.ops import decode93 as d93
 from dcsexplorer_tpu_torch.ops import kernels
 from dcsexplorer_tpu_torch.ops import transform as tf
 from dcsexplorer_tpu_torch.refdec import decoder as rd
@@ -40,6 +46,10 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "assets", "streams")
 SESSION6_ZIP = os.path.join(REPO, "dcsexplorer_tpu_torch", "data",
                             "session6.zip")
+SESSION93A_ZIP = os.path.join(REPO, "dcsexplorer_tpu_torch", "data",
+                              "session93a.zip")
+WIRES93 = {False: ["music_a.dcs93b", "music_b.dcs93a"],
+           True: ["dense_t1.dcs93a1", "dense_t1b.dcs93a1"]}
 
 
 @pytest.fixture(scope="module")
@@ -227,7 +237,8 @@ def test_sweep_on_the_card_equals_the_cpu_sweep(dev):
     assert launched == {"decode94_fb": 1, "decode94_bank": 0,
                         "dequant_mix": 0, "segments94": 0, "session_mix94": 0,
                         "transform94_planar": 0, "transform94_pcm": 1,
-                        "transform94_pcm_carry": 0}
+                        "transform94_pcm_carry": 0, "decode93_fb": 0,
+                        "transform93_pcm": 0, "transform93_pcm_carry": 0}
 
 
 # -- the session path --------------------------------------------------------
@@ -386,4 +397,222 @@ def test_session_server_on_the_card_equals_the_cpu_server(dev):
     assert launched == {"decode94_fb": 0, "decode94_bank": 1,
                         "dequant_mix": 0, "segments94": 3, "session_mix94": 3,
                         "transform94_planar": 0, "transform94_pcm": 3,
-                        "transform94_pcm_carry": 0}
+                        "transform94_pcm_carry": 0, "decode93_fb": 0,
+                        "transform93_pcm": 0, "transform93_pcm_carry": 0}
+
+
+# -- the 1993 family -----------------------------------------------------------
+
+@pytest.fixture(scope="module")
+def tabs93(dev):
+    return {k: v.to(dev) for k, v in cs.codec_tables93().items()}
+
+
+@pytest.fixture(scope="module")
+def rom93(dev):
+    rs, _ = zipload.load_zip_file(SESSION93A_ZIP)
+    assert rs.check() == 1
+    return rs, romplay.build_rom_bank(rs, dev)
+
+
+def _flat93_columns(t1, dev):
+    streams = [open(os.path.join(ASSETS, n), "rb").read()
+               for n in WIRES93[t1]]
+    return cs.packed93_to_device(cs.Flat93Sweep(streams, t1)
+                                 .compact_host_arrays(), dev)
+
+
+def _decode93_both(cols, rows, mix, tabs93):
+    want = d93.decode93_fb_plain(cols, rows, mix, tabs93)
+    got = kernels.decode93_fb(*(cols[k] for k in d93.COLUMNS), rows, mix,
+                              tabs93["pair"], tabs93["inputs"])
+    torch.cuda.synchronize()
+    return want, got
+
+
+@pytest.mark.parametrize("t1", [False, True])
+def test_decode93_fb_kernel_on_the_flat_assets(dev, tabs93, t1):
+    cols = _flat93_columns(t1, dev)
+    want, got = _decode93_both(cols, None, cols["mix"], tabs93)
+    assert got.shape == (cols["frame_word"].shape[0], 512)
+    assert torch.equal(want, got)
+
+
+def _random_columns(bank_cols, seed):
+    """The bank's columns with random chain states on every row and random
+    93a scale codes (the chains and ramps over the whole u16 range, scale
+    words up to $D745 << 14)."""
+    g = torch.Generator(device=bank_cols["prv"].device).manual_seed(seed)
+    cols = dict(bank_cols)
+    dev = cols["prv"].device
+    cols["prv"] = torch.randint(-(1 << 31), (1 << 31) - 1,
+                                tuple(cols["prv"].shape), generator=g,
+                                device=dev, dtype=torch.int32)
+    code = torch.randint(0, 60, tuple(cols["code_u8"].shape), generator=g,
+                         device=dev, dtype=torch.int32)
+    cols["code_u8"] = torch.where(cols["code_u8"] == 0xFF, 0xFF,
+                                  code).to(torch.uint8)
+    return cols
+
+
+@pytest.mark.parametrize("C", [1, 6, 8])
+def test_decode93_fb_kernel_on_random_rows(dev, tabs93, rom93, C):
+    # rows of both kinds and row 0 in every voice, mixes over the u16
+    # range, frames past a block's end; the bank's own columns and random
+    # chain states and scale codes
+    bank = rom93[1]
+    g = torch.Generator(device=dev).manual_seed(C)
+    F, R = 2 * 8 * 97 + 3, bank.total_rows()
+    rows = torch.randint(0, R, (F, C), generator=g, device=dev,
+                         dtype=torch.int32)
+    rows[torch.rand((F, C), generator=g, device=dev) < 0.2] = 0
+    rows[:16] = 0                                   # all-silent frames
+    mix = torch.randint(0, 1 << 16, (F, C), generator=g, device=dev,
+                        dtype=torch.int32)
+    mix[16:20, 0] = torch.tensor([0, 0xFFFF, 0x8000, 0x7FFF], device=dev,
+                                 dtype=torch.int32)
+    for cols in (bank.cols, _random_columns(bank.cols, C)):
+        want, got = _decode93_both(cols, rows, mix, tabs93)
+        assert torch.equal(want, got)
+        assert not got[:16].any()
+
+
+def test_decode93_fb_kernel_on_silent_bands_and_a_short_pool(dev, tabs93):
+    # every 93 band K_NONE on some frames, and a pool that ends inside the
+    # last frames (bits past it read as $FF)
+    cols = dict(_flat93_columns(False, dev))
+    kw = cols["kw_u8"].clone()
+    kw[::7] = 0
+    cols["kw_u8"] = kw
+    F = cols["frame_word"].shape[0]
+    cut = int(cols["frame_word"][F - 3]) * 4 + 37
+    cols["pool_u8"] = cols["pool_u8"][:cut].clone()
+    want, got = _decode93_both(cols, None, cols["mix"], tabs93)
+    assert torch.equal(want, got)
+    t1 = dict(_flat93_columns(True, dev))
+    F = t1["frame_word"].shape[0]
+    t1["pool_u8"] = t1["pool_u8"][:int(t1["frame_word"][F - 2]) * 4 + 5] \
+        .clone()
+    want, got = _decode93_both(t1, None, t1["mix"], tabs93)
+    assert torch.equal(want, got)
+
+
+T93 = kernels.TRANSFORM93_PCM_TILE
+
+
+@pytest.mark.parametrize("n", [1, T93 - 1, T93 + 1, 3 * T93 + 5])
+def test_transform93_pcm_kernel_on_edge_frames(dev, tabs93, n):
+    # saturating and random frames, volume shifts up to 40, stream ids in
+    # runs of one frame, runs across tiles and starts at the tile edges;
+    # flat, and with random carried states (ids with no frames keep theirs)
+    rng = np.random.default_rng(n)
+    fb = rng.integers(0, 0x10000, size=(n, 512)).astype(np.int32)
+    fb[0:n:5, :256] = 0x8000
+    fb[1:n:5, :256] = 0x7FFF
+    fb[2:n:5, :2] = 0
+    fb[3:n:5] = rng.choice([0x8000, 0x7FFF, 0, 1, 0xFFFF, 0x4000],
+                           size=(len(range(3, n, 5)), 512))
+    vs = rng.integers(0, 41, size=n).astype(np.int32)
+    fb_t, vs_t = torch.tensor(fb, device=dev), torch.tensor(vs, device=dev)
+    runs = np.repeat(np.arange(n), rng.integers(1, 2 * T93, size=n))[:n]
+    edges = np.searchsorted([T93 - 1, T93, T93 + 1], np.arange(n), "right")
+    for sid in (np.zeros(n), np.arange(n), runs, 2 * edges + 1):
+        sid_t = torch.tensor(sid.astype(np.int32), device=dev)
+        want = tf.transform93_pcm_plain(fb_t, vs_t, sid_t, tabs93)
+        got = kernels.transform93_pcm(fb_t, vs_t, sid_t, tabs93)
+        torch.cuda.synchronize()
+        assert torch.equal(want, got)
+        G = int(sid.max()) + 3
+        ov0 = torch.tensor(rng.integers(0, 0x10000, size=(G, 16))
+                           .astype(np.int32), device=dev)
+        want = tf.transform93_pcm_plain(fb_t, vs_t, sid_t, tabs93, ov0)
+        got = kernels.transform93_pcm(fb_t, vs_t, sid_t, tabs93, ov0)
+        torch.cuda.synchronize()
+        assert torch.equal(want[0], got[0]) and torch.equal(want[1], got[1])
+        assert torch.equal(got[1][-1], ov0[-1])
+
+
+def test_1993_wrappers_refuse_bad_tensors(dev, tabs93):
+    fb = torch.zeros((4, 512), dtype=torch.int32, device=dev)
+    vs = sid = torch.zeros(4, dtype=torch.int32, device=dev)
+    with pytest.raises(TypeError):
+        kernels.transform93_pcm(fb.long(), vs, sid, tabs93)
+    with pytest.raises(ValueError, match="contiguous"):
+        kernels.transform93_pcm(fb.t().contiguous().t(), vs, sid, tabs93)
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.transform93_pcm(fb, vs, sid.cpu(), tabs93)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.transform93_pcm(fb, vs, sid[:3], tabs93)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.transform93_pcm(fb, vs, sid, tabs93,
+                                torch.zeros((2, 8), dtype=torch.int32,
+                                            device=dev))
+    skewed = torch.zeros(4 * 512 + 1, dtype=torch.int32, device=dev)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.transform93_pcm(skewed.view(4, 512), vs, sid, tabs93)
+    cols = _flat93_columns(False, dev)
+    args = [cols[k] for k in d93.COLUMNS]
+
+    def decode(args, rows=None, mix=cols["mix"]):
+        return kernels.decode93_fb(*args, rows, mix, tabs93["pair"],
+                                   tabs93["inputs"])
+
+    bad = list(args)
+    bad[0] = cols["pool_u8"][1:]
+    with pytest.raises(ValueError, match="aligned"):
+        decode(bad)
+    bad = list(args)
+    bad[4] = cols["kind_u8"].int()
+    with pytest.raises(TypeError):
+        decode(bad)
+    with pytest.raises(ValueError, match="shape"):
+        decode(args, mix=cols["mix"][1:])
+    nine = torch.zeros((4, 9), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="channels"):
+        decode(args, nine, nine)
+    with pytest.raises(ValueError, match="CUDA"):
+        decode(args, mix=cols["mix"].cpu())
+
+
+def test_flat93_sweep_on_the_card_equals_the_cpu_sweep(dev):
+    for t1 in (False, True):
+        streams = [open(os.path.join(ASSETS, n), "rb").read()
+                   for n in WIRES93[t1]]
+        arrays = cs.Flat93Sweep(streams, t1).compact_host_arrays()
+        before = dict(kernels.LAUNCHES)
+        got = cs.Flat93Pipeline()(**cs.packed93_to_device(arrays))
+        torch.cuda.synchronize()
+        launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        want = cs.Flat93Pipeline("cpu")(**cs.packed93_to_device(arrays,
+                                                                "cpu"))
+        assert torch.equal(want, got.cpu())
+        assert {k: v for k, v in launched.items() if v} == {
+            "decode93_fb": 1, "transform93_pcm": 1}
+
+
+def test_1993_session_server_on_the_card_equals_the_cpu_server(dev, rom93):
+    rs, bank = rom93
+    S, T = 5, 150
+    batches = [[{(b * 7 + t * 3) % 40: [0x00, t] for t in range(1, 7)}
+                | {0: [0x55, 0xAA, 0x40 + b, (0x40 + b) ^ 0xFF]}
+                for b in range(k * S, k * S + S)] for k in range(3)]
+    before = dict(kernels.LAUNCHES)
+    with romplay.SessionServer(rs, S, T, n_ch=6, depth=2, bank=bank) as srv:
+        got = list(srv.serve(batches))
+    launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+    cpu_bank = romplay.build_rom_bank(rs, "cpu")
+    with romplay.SessionServer(rs, S, T, n_ch=6, bank=cpu_bank,
+                               device="cpu") as srv:
+        want = list(srv.serve(batches))
+    assert len(got) == len(want) == 3
+    assert all(np.array_equal(w, g) for w, g in zip(want, got))
+    assert all(np.abs(g).max() > 0 for g in got)
+    assert {k: v for k, v in launched.items() if v} == {
+        "segments94": 3, "decode93_fb": 3, "transform93_pcm": 3}
+    # a single session carries its overlap state: the carry instance
+    before = kernels.LAUNCHES["transform93_pcm_carry"]
+    one, _ = romplay.play_session(
+        rs, {f: (lambda d, bs=tuple(bs): [d.write_data_port(x) for x in bs])
+             for f, bs in batches[0][0].items()}, T, bank=bank)
+    assert kernels.LAUNCHES["transform93_pcm_carry"] == before + 1
+    assert np.array_equal(one, got[0][0])

@@ -4,7 +4,8 @@ RomSet (fields, checksums, check(), version), the track tables
 of the native tracer (trace_frames with port events, full_reset).  Two
 ROMs: the synthetic one of test_romgen._make_spec, and the committed
 dcsexplorer_tpu_torch/data/session6.zip, whose chip images must equal a
-fresh romgen build of the same spec.  No jax computation runs here."""
+fresh romgen build of the same spec (and likewise data/session93a.zip, the
+1993 sessions' ROM).  No jax computation runs here."""
 
 import os
 
@@ -33,6 +34,8 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "assets", "streams")
 SESSION6_ZIP = os.path.join(REPO, "dcsexplorer_tpu_torch", "data",
                             "session6.zip")
+SESSION93A_ZIP = os.path.join(REPO, "dcsexplorer_tpu_torch", "data",
+                              "session93a.zip")
 ROM_FIELDS = ("chip_sizes", "is_dummy", "catalog_ofs", "n_tracks",
               "_track_index", "_indirect_index", "hw_version", "os_version",
               "nominal_version", "game_id")
@@ -48,6 +51,28 @@ def session6_spec():
     spec = g.RomSpec(os_version=jrd.OS94, num_channels=6)
     spec.streams = {f"s{i}": open(os.path.join(ASSETS, f"{n}.dcs94"),
                                   "rb").read()
+                    for i, n in enumerate(names)}
+    spec.tracks = [g.TrackSpec(0, steps=[g.op_end()])]
+    for i in range(6):
+        spec.tracks.append(g.TrackSpec(i + 1, channel=i, steps=[
+            g.op_mix(0, i, 0x40 + 4 * i),
+            g.op_play(i, f"s{i}", repeat=0),
+            g.op_wait_forever(),
+        ]))
+    return spec
+
+
+def session93a_spec():
+    """The 1993 sessions' ROM (chip_smoke.py phase 11): an OS93a ROM of six
+    channels whose streams are music_b.dcs93a (93a Type-0) and the two
+    OS93a Type-1 streams dense_t1 and dense_t1b, each twice under distinct
+    names; track 0 ends, tracks 1-6 each set a level and play one stream
+    forever on its own channel, as session6_spec does, so both row kinds
+    sound in every frame."""
+    g = romgen
+    names = ["music_b.dcs93a", "dense_t1.dcs93a1", "dense_t1b.dcs93a1"] * 2
+    spec = g.RomSpec(os_version=jrd.OS93A, num_channels=6)
+    spec.streams = {f"s{i}": open(os.path.join(ASSETS, n), "rb").read()
                     for i, n in enumerate(names)}
     spec.tracks = [g.TrackSpec(0, steps=[g.op_end()])]
     for i in range(6):
@@ -199,3 +224,15 @@ def test_session6_zip_is_the_romgen_build():
     assert _chip_bytes(committed) == _chip_bytes(fresh)
     assert committed.n_tracks == fresh.n_tracks == 7
     assert len(ttracks.list_streams(committed, trd.OS94)) == 6
+
+
+def test_session93a_zip_is_the_romgen_build():
+    # the same for the 1993 sessions' ROM: an OS93a ROM of six channels
+    fresh, _ = jzip.load_zip_data(
+        romgen.RomBuilder(session93a_spec()).build_zip(), zip_name="s93.zip")
+    committed, _ = tzip.load_zip_file(SESSION93A_ZIP)
+    assert committed.check() == fresh.check() == 1
+    assert committed.os_version == trd.OS93A
+    assert _chip_bytes(committed) == _chip_bytes(fresh)
+    assert committed.n_tracks == 7 and committed.num_channels() == 6
+    assert len(ttracks.list_streams(committed, trd.OS93A)) == 6

@@ -178,10 +178,31 @@ def test_dequant_mix_plain_active_matches_jax(jax_bank):
     assert np.array_equal(np.asarray(want) & 0xFFFF, got.numpy() & 0xFFFF)
 
 
-def test_stream_bank_refuses_the_1993_family():
-    for os_v in (trd.OS93A, trd.OS93B):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tpl.StreamBank(os_v)
+@pytest.mark.parametrize("os_v,name", [(trd.OS93B, "music_b.dcs93a"),
+                                        (trd.OS93A, "dense_t1.dcs93a1")])
+def test_stream_bank_builds_and_decodes_the_1993_family(os_v, name):
+    # a 1993 bank keeps the bitstream and its index as columns (no decoded
+    # rows) and decodes through SessionDecoder93; tests/
+    # test_torch_sessions93.py holds the family against the JAX package
+    s = open(os.path.join(ASSETS, name), "rb").read()
+    bank = tpl.StreamBank(os_v)
+    bank.add(s)
+    bank.decode_all("cpu")
+    assert bank.family93 and not hasattr(bank, "scaled")
+    assert bank.total_rows() == 1 + ((s[0] << 8) | s[1])
+    assert bank.cols["kind_u8"].shape == (bank.total_rows(),)
+    dec = tpl.session_decoder(bank)
+    assert isinstance(dec, tpl.SessionDecoder93)
+    n = 12
+    got = tpl.decode_standalone([(s, 0, 0x64)], os_version=os_v, n_frames=n,
+                                device="cpu")
+    ref = trd.ReferenceDecoder()
+    ref.default_volume = 0x67
+    ref.init_standalone(os_v)
+    ref.soft_boot()
+    ref.load_audio_stream(0, s, mixing_level=0x64)
+    want = np.array(ref.next_samples(n * 240), dtype=np.int16)
+    assert np.array_equal(want, got) and np.abs(want).max() > 0
 
 
 # -- device_decode and the carried overlap ---------------------------------
