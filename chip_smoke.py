@@ -48,8 +48,9 @@ non-zero):
  10. the flat 1993 sweeps at bench.py's width: pack dec93b (music_a.dcs93b
      + music_b.dcs93a x 72: 144 streams) and dec93a_t1 (dense_t1.dcs93a1 +
      dense_t1b.dcs93a1 x 72) and run both through Flat93Pipeline on the
-     card: the launch counters of decode93_fb and transform93_pcm must
-     move, PCM must equal the plain-version sweep; each timed as phase 4
+     card: decode93_pcm must launch once a sweep and decode93_fb and
+     transform93_pcm not at all, PCM must equal the plain-version sweep;
+     each timed as phase 4
      times the 1994+ sweep, beside the host's pack and its unpack of the
      compact wire + upload; all four assets/streams/*.dcs93* against the
      port's ReferenceDecoder (OS93b for the 93b / 93a Type-0 wire, OS93a
@@ -58,18 +59,21 @@ non-zero):
      dcsexplorer_tpu_torch/data/session93a.zip (OS93a, both row kinds),
      build the bank, serve one batch of 320 sessions x 1,000 frames x 6
      voices through SessionServer and play session 0 through play_session;
-     the launch counters of segments94, decode93_fb, transform93_pcm and
-     transform93_pcm_carry must move; the batch equals the plain-version
+     the launch counters of segments94, decode93_pcm and decode93_pcm_carry
+     must move and those of decode93_fb, transform93_pcm and
+     transform93_pcm_carry must not; the batch equals the plain-version
      server, session 0 play_session's, sessions 0 and 319 the scalar
      decoder over 250 frames, and no session is silent
- 12. the 1993 kernels against their plain versions at those shapes, timed
-     beside their bounds as in phase 3: decode93_fb on both sweeps and on
-     the session batch (C = 6, both kinds), transform93_pcm on the dec93b
-     sweep, transform93_pcm_carry on the batch with a random carried
-     state; the stage spans of the dec93b sweep and of one session93a
-     batch; the batch's device time, serve() x realtime over 8 batches
-     with every gap and latency as in phase 9, the native trace, and the
-     peak device memory of one batch
+ 12. decode93_pcm.cu's closed-form normalize against the 31-step loop on
+     all 2^32 inputs; the 1993 kernels against their plain versions at the
+     paths' shapes, timed beside their bounds as in phase 3: decode93_pcm
+     on both sweeps, on the session batch (C = 6, both kinds) and on the
+     batch with a random carried state (decode93_pcm_carry), each beside
+     the sum of the pair it replaced, decode93_fb + transform93_pcm (on no
+     path), held and timed at the same shapes; the stage spans of the
+     dec93b sweep and of one session93a batch; the batch's device time,
+     serve() x realtime over 8 batches with every gap and latency as in
+     phase 9, the native trace, and the peak device memory of one batch
 Then one JSON line of per-kernel results (launches: over all four paths,
 each path's own printed in phases 4, 7, 10 and 11), and last the
 {"ok": true, ...} line.
@@ -252,6 +256,7 @@ def main():
     del header, fmt, sub, bt, btp, packed
 
     results = {}   # name -> dict of the kernels line
+    times = {}     # check label -> kernel ms
     where = {      # name -> (source in csrc/, the TPU code it replaces)
         "decode94_fb": ("decode94_fb.cu",
                         "dcsexplorer_tpu/models/flatsweep.py:87"),
@@ -288,6 +293,7 @@ def main():
         plain_ms = _time_ms(plain_fn, reps_plain, torch)
         ms = _time_ms(kern_fn, reps_kern, torch)
         bound_ms, bound_by = _bound(n_bytes, n_ops)
+        times[label] = ms
         print(f"phase {phase} {label}: bit-exact, kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}; {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} G "
@@ -676,7 +682,11 @@ def main():
         "transform93_pcm": ("transform93_pcm.cu",
                             "dcsexplorer_tpu/ops/transform.py:490"),
         "transform93_pcm_carry": ("transform93_pcm.cu",
-                                  "dcsexplorer_tpu/ops/transform.py:586")})
+                                  "dcsexplorer_tpu/ops/transform.py:586"),
+        "decode93_pcm": ("decode93_pcm.cu",
+                         "dcsexplorer_tpu/ops/decode93.py:197"),
+        "decode93_pcm_carry": ("decode93_pcm.cu",
+                               "dcsexplorer_tpu/ops/transform.py:586")})
     sweeps93 = {}
     for name, files, t1 in (
             ("dec93b", ("music_a.dcs93b", "music_b.dcs93a"), False),
@@ -701,10 +711,10 @@ def main():
         sw93["pcm"] = pipe93(**sw93["cols"])
     torch.cuda.synchronize()
     f93_launches = dict(kernels.LAUNCHES)
-    if not all(f93_launches[k] > 0 for k in ("decode93_fb",
-                                              "transform93_pcm")):
-        raise AssertionError(f"a kernel of the 1993 sweep did not launch: "
-                             f"{f93_launches}")
+    if f93_launches["decode93_pcm"] != len(sweeps93) or any(
+            f93_launches[k] for k in ("decode93_fb", "transform93_pcm")):
+        raise AssertionError(f"the 1993 sweeps did not run through "
+                             f"decode93_pcm alone: {f93_launches}")
     print(f"phase 10 launches of the two sweeps: {f93_launches}")
     for name, sw93 in sweeps93.items():
         cols93, pcm = sw93["cols"], sw93["pcm"]
@@ -788,10 +798,11 @@ def main():
     torch.cuda.synchronize()
     s93_launches = dict(kernels.LAUNCHES)
     if not all(s93_launches[k] > 0 for k in (
-            "segments94", "decode93_fb", "transform93_pcm",
-            "transform93_pcm_carry")):
-        raise AssertionError(f"a kernel of the 1993 session path did not "
-                             f"launch: {s93_launches}")
+            "segments94", "decode93_pcm", "decode93_pcm_carry")) or any(
+            s93_launches[k] for k in ("decode93_fb", "transform93_pcm",
+                                      "transform93_pcm_carry")):
+        raise AssertionError(f"the 1993 session path did not run through "
+                             f"segments94 and decode93_pcm: {s93_launches}")
     if got93.shape != (S, T * 240) or got93.dtype != np.int16:
         raise AssertionError(f"session93a batch {got93.shape} {got93.dtype}")
     with romplay.SessionServer(rs93, S, T, n_ch=C, seg_e=SEG_E, bank=bank93,
@@ -839,9 +850,19 @@ def main():
           f"port's ReferenceDecoder over {REF_FRAMES} frames "
           f"({time.perf_counter() - t0:.3f} s scalar)")
 
-    # 12. the 1993 kernels against their plain versions at the paths' shapes
+    # 12. the 1993 kernels against their plain versions at the paths' shapes:
+    # decode93_pcm, and the pair it replaced (decode93_fb, transform93_pcm,
+    # on no path) as its yardstick in the same run
     tabs93 = dict(pipe93.named_buffers())
     inputs93 = tabs93["inputs"].long()
+    t0 = time.perf_counter()
+    bad = kernels.normalize93_check(dev)
+    if bad:
+        raise AssertionError(f"normalize93: the closed form differs from the "
+                             f"31-step loop on {bad} inputs")
+    print(f"phase 12 normalize93: decode93_pcm.cu's __clz form equals the "
+          f"31-step loop on all 2^32 inputs "
+          f"({time.perf_counter() - t0:.3f} s)")
 
     def decode93_work(cols, rows):
         """(93 band cells, 93a inputs) that these rows decode (rows None:
@@ -854,44 +875,85 @@ def main():
             cells, ins = cells[rows.long()], ins[rows.long()]
         return int(cells.sum()), int(ins.sum())
 
-    def check_decode93(cols, rows, mix, shape=None):
-        # reads each bank row's columns once (frame_word, sid, kind, kw,
-        # bit_rel, prv, code: 181 B), the rows and mixes, the pool and the
-        # band tables, and writes [F, 512]; ~12 integer operations a 93
-        # band cell (extract, sign-extend, chain, scale, mix multiply-add)
-        # and ~16 a 93a input (extract, pair look-up, two rounded
-        # multiply-adds)
-        R, F = cols["frame_word"].shape[0], mix.shape[0]
+    def decode93_cost(cols, rows, mix):
+        """(bytes, operations) of the decode: each bank row's columns once
+        (frame_word, sid, kind, kw, bit_rel, prv, code: 181 B), the rows and
+        mixes, the pool and the band tables; ~12 integer operations a 93
+        band cell (extract, sign-extend, chain, scale, mix multiply-add) and
+        ~16 a 93a input (extract, pair look-up, two rounded multiply-adds)"""
+        R = cols["frame_word"].shape[0]
         cells, ins = decode93_work(cols, rows)
-        n_bytes = (R * 181 + cols["pool_u8"].numel()
-                   + cols["band_tab"].numel() * 4 + mix.numel() * 4
-                   * (1 if rows is None else 2) + F * 512 * 4)
+        return (R * 181 + cols["pool_u8"].numel()
+                + cols["band_tab"].numel() * 4 + mix.numel() * 4
+                * (1 if rows is None else 2)), 12 * cells + 16 * ins
+
+    def check_decode93(cols, rows, mix, shape=None):
+        # the decode's bytes and operations, and [F, 512] written
+        n_bytes, n_ops = decode93_cost(cols, rows, mix)
         return check(
             "decode93_fb",
             lambda: d93.decode93_fb_plain(cols, rows, mix, tabs93),
             lambda: kernels.decode93_fb(*(cols[k] for k in d93.COLUMNS),
                                         rows, mix, tabs93["pair"],
                                         tabs93["inputs"]),
-            1, 20, n_bytes, 12 * cells + 16 * ins, phase=12, shape=shape)
+            1, 20, n_bytes + mix.shape[0] * 512 * 4, n_ops, phase=12,
+            shape=shape)
 
     # transform93_pcm reads words 0..255 of each frame buffer, the volume
     # shift and the stream id, and writes [N, 240]; ~15,000 integer
     # operations a frame, counted as phase 3 counts the 1994 transform
     # (~15 a butterfly: seven radix-2 stages of 128 butterflies, the
     # expansion, the slot-0 fix-up, the volume shift and 16 blends)
+    def check_transform93(fb, vol, fsid, ov0=None, shape=None):
+        n = fb.shape[0]
+        return check(
+            "transform93_pcm" if ov0 is None else "transform93_pcm_carry",
+            lambda: tf.transform93_pcm_plain(fb, vol, fsid, tabs93, ov0),
+            lambda: kernels.transform93_pcm(fb, vol, fsid, tabs93, ov0),
+            1, 20, n * (256 * 4 + 4 + 4 + 240 * 4)
+            + (0 if ov0 is None else ov0.numel() * 4 * 2), 15000 * n,
+            phase=12, shape=shape)
+
+    # decode93_pcm: the decode's bytes and operations, the volume shift and
+    # the stream id, 960 B of PCM a frame (and the carried state in and
+    # out), plus the transform's 15,000 operations a frame
+    def check_decode93_pcm(cols, rows, mix, vol, fsid, ov0=None, shape=None):
+        n_bytes, n_ops = decode93_cost(cols, rows, mix)
+        n = mix.shape[0]
+        return check(
+            "decode93_pcm" if ov0 is None else "decode93_pcm_carry",
+            lambda: d93.decode93_pcm_plain(cols, rows, mix, vol, fsid, tabs93,
+                                           ov0),
+            lambda: kernels.decode93_pcm(*(cols[k] for k in d93.COLUMNS),
+                                         rows, mix, vol, fsid, tabs93, ov0),
+            1, 20, n_bytes + n * (4 + 4 + 240 * 4)
+            + (0 if ov0 is None else ov0.numel() * 4 * 2),
+            n_ops + 15000 * n, phase=12, shape=shape)
+
+    def against_pair(shape, fused, dec, tra):
+        print(f"phase 12 {shape}: decode93_pcm {times[fused]:.4f} ms against "
+              f"decode93_fb + transform93_pcm {times[dec]:.4f} + "
+              f"{times[tra]:.4f} = {times[dec] + times[tra]:.4f} ms "
+              f"({(times[dec] + times[tra]) / times[fused]:.2f}x)")
+
     c93 = sweeps93["dec93b"]["cols"]
     fb93 = check_decode93(c93, None, c93["mix"])
-    vol93 = c93["vol"]
-    check("transform93_pcm",
-          lambda: tf.transform93_pcm_plain(fb93, vol93, c93["sid"], tabs93),
-          lambda: kernels.transform93_pcm(fb93, vol93, c93["sid"], tabs93),
-          1, 20, fb93.shape[0] * (256 * 4 + 4 + 4 + 240 * 4),
-          15000 * fb93.shape[0], phase=12)
+    check_transform93(fb93, c93["vol"], c93["sid"])
     del fb93
+    check_decode93_pcm(c93, None, c93["mix"], c93["vol"], c93["sid"])
+    against_pair("dec93b", "decode93_pcm", "decode93_fb", "transform93_pcm")
     ct1 = sweeps93["dec93a_t1"]["cols"]
-    check_decode93(ct1, None, ct1["mix"], shape="dec93a_t1, OS93a Type-1")
+    shape = "dec93a_t1, OS93a Type-1"
+    fb93 = check_decode93(ct1, None, ct1["mix"], shape=shape)
+    check_transform93(fb93, ct1["vol"], ct1["sid"], shape=shape)
+    del fb93
+    check_decode93_pcm(ct1, None, ct1["mix"], ct1["vol"], ct1["sid"],
+                       shape=shape)
+    against_pair(shape, f"decode93_pcm ({shape})", f"decode93_fb ({shape})",
+                 f"transform93_pcm ({shape})")
 
-    # the session batch's shapes: C = 6 voices of both row kinds
+    # the session batch's shapes: C = 6 voices of both row kinds, without
+    # and with a random carried state
     wire_np93, E93 = srv93.prepare(batch)
     wire93 = torch.tensor(wire_np93, device=dev)
     rows93, mixes93, vols93 = romplay.segments94(wire93, S, T, C, E93)
@@ -899,18 +961,22 @@ def main():
     bkind = bcols["kind_u8"][rows93.long()]
     mixed = int(((bkind == d93.ROW_93).any(1)
                  & (bkind == d93.ROW_93A).any(1)).sum())
-    fbs93 = check_decode93(bcols, rows93, mixes93,
-                           shape=f"session93a batch, C = {C}, {mixed} frames "
-                                 f"of both kinds")
+    shape = f"session93a batch, C = {C}, {mixed} frames of both kinds"
+    fbs93 = check_decode93(bcols, rows93, mixes93, shape=shape)
+    check_transform93(fbs93, vols93, sid, shape=shape)
     gen = torch.Generator(device=dev).manual_seed(2)
     ov93 = torch.randint(0, 1 << 16, (S, 16), generator=gen, device=dev,
                          dtype=torch.int32)
-    check("transform93_pcm_carry",
-          lambda: tf.transform93_pcm_plain(fbs93, vols93, sid, tabs93, ov93),
-          lambda: kernels.transform93_pcm(fbs93, vols93, sid, tabs93, ov93),
-          1, 20, F * (256 * 4 + 4 + 4 + 240 * 4) + S * 16 * 4 * 2,
-          15000 * F, phase=12)
-    del fbs93, rows93, mixes93, vols93
+    check_transform93(fbs93, vols93, sid, ov93)
+    del fbs93
+    check_decode93_pcm(bcols, rows93, mixes93, vols93, sid, shape=shape)
+    against_pair(shape, f"decode93_pcm ({shape})", f"decode93_fb ({shape})",
+                 f"transform93_pcm ({shape})")
+    check_decode93_pcm(bcols, rows93, mixes93, vols93, sid, ov93)
+    against_pair("session93a batch with a random carried state",
+                 "decode93_pcm_carry", f"decode93_fb ({shape})",
+                 "transform93_pcm_carry")
+    del rows93, mixes93, vols93
     for k, r in results.items():        # phase 10's launches and phase 11's
         r["launches"] += f93_launches[k] + s93_launches[k]
 
@@ -934,10 +1000,8 @@ def main():
         return out, {k: sum(v) / len(v) for k, v in spans.items()}
 
     out, sweep_spans = spans_of([
-        ("decode93_fb", lambda _: d93.decode93_fb(c93, None, c93["mix"],
-                                                  tabs93)),
-        ("transform93_pcm", lambda fb: tf.transform93_pcm(
-            fb, c93["vol"], c93["sid"], tabs93))])
+        ("decode93_pcm", lambda _: d93.decode93_pcm(
+            c93, None, c93["mix"], c93["vol"], c93["sid"], tabs93))])
     if _max_abs_err(out, sweeps93["dec93b"]["pcm"]) != 0:
         raise AssertionError("dec93b stage-span run != sweep PCM")
     ctl = {}
@@ -949,10 +1013,8 @@ def main():
 
     out, batch_spans = spans_of([
         ("segments94", expand),
-        ("decode93_fb", lambda _: d93.decode93_fb(bcols, ctl["rows"],
-                                                  ctl["mix"], tabs93)),
-        ("transform93_pcm", lambda fb: tf.transform93_pcm(
-            fb, ctl["vol"], sid, tabs93)),
+        ("decode93_pcm", lambda _: d93.decode93_pcm(
+            bcols, ctl["rows"], ctl["mix"], ctl["vol"], sid, tabs93)),
         ("int16", pipeline.to_int16)])
     if not np.array_equal(out.reshape(S, -1).cpu().numpy(), got93):
         raise AssertionError("session93a span run != served batch")

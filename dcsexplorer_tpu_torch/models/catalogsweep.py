@@ -11,12 +11,13 @@ frame.  The sweep runs
             -> Flat93Sweep.compact_host_arrays() (the reference's compact
             wire) -> packed93_to_device (the bank columns of
             ops/decode93.py, uploaded)
-    device: decode93_fb (one voice a frame) -> transform93_pcm -> PCM
+    device: decode93_pcm (one voice a frame; decode, transform and overlap
+            resolve in one) -> PCM
 
 with the device part as ``Flat93Pipeline`` (an ``nn.Module`` whose buffers
-are the codec tables of ``codec_tables93``).  On CUDA tensors both stages
-are hand-written kernels (``ops/kernels.py``); on CPU tensors their plain
-PyTorch versions run.  The session bank of ``models/pipeline.py`` builds the
+are the codec tables of ``codec_tables93``).  On CUDA tensors the stage is
+a hand-written kernel (``ops/kernels.py``); on CPU tensors its plain
+PyTorch version runs.  The session bank of ``models/pipeline.py`` builds the
 same columns over a ROM's streams (``stream_columns``, ``rows93``).  The
 reference's mixed-family ``catalog_pipeline`` is not ported yet.  The entry
 points run on the card unless the caller names another device.  Bit-exact
@@ -29,7 +30,6 @@ from torch import nn
 
 from ..format import tables as T
 from ..ops import decode93, decode93a
-from ..ops import transform as tf
 from ..refdec import decoder as rd
 from ..vm import native_tracer as nt
 from .flatsweep import _device, to_int16
@@ -354,12 +354,9 @@ class Flat93Pipeline(nn.Module):
 
     def forward(self, mix, vol, **cols):
         tabs = dict(self.named_buffers())
-        decode = decode93.decode93_fb_plain if self.plain \
-            else decode93.decode93_fb
-        to_pcm = tf.transform93_pcm_plain if self.plain \
-            else tf.transform93_pcm
-        fb = decode(cols, None, mix, tabs)
-        return to_pcm(fb, vol, cols["sid"], tabs)
+        decode = decode93.decode93_pcm_plain if self.plain \
+            else decode93.decode93_pcm
+        return decode(cols, None, mix, vol, cols["sid"], tabs)
 
 
 def run_flat93(sweep, device="cuda"):

@@ -15,9 +15,10 @@ frames at once:
 1993 family (OS93a, OS93b; ``device_decode93`` of the reference):
     bank (once per ROM):  the streams' bytes and their prescan index as the
                           bank columns of ops/decode93.py (no decode)
-    per session batch:    decode93_fb (each frame's voices, in channel
-                          order, straight from the bitstream) ->
-                          transform93_pcm (with a carried state likewise)
+    per session batch:    decode93_pcm (each frame's voices, in channel
+                          order, straight from the bitstream, then the
+                          transform and overlap resolve, with a carried
+                          state likewise) -> PCM
 
 ``StreamBank`` holds every stream a ROM's tracks play (row 0 silent);
 ``SessionDecoder`` and ``SessionDecoder93`` are the device halves as
@@ -241,12 +242,9 @@ class SessionDecoder93(nn.Module):
         [F], overlap0 [G, 16] or None.  Each frame starts from silence and
         decodes its voices in channel order."""
         bufs = dict(self.named_buffers())
-        decode = decode93.decode93_fb_plain if self.plain \
-            else decode93.decode93_fb
-        to_pcm = tf.transform93_pcm_plain if self.plain \
-            else tf.transform93_pcm
-        fb = decode(bufs, rows, mix, bufs)
-        return to_pcm(fb, vol_shift, sid, bufs, overlap0)
+        decode = decode93.decode93_pcm_plain if self.plain \
+            else decode93.decode93_pcm
+        return decode(bufs, rows, mix, vol_shift, sid, bufs, overlap0)
 
 
 def session_decoder(bank, device=None, plain=False):

@@ -17,12 +17,17 @@ the port reads bits straight from the byte pool.
 Device half: ``decode93_frames_plain`` is the band decode of one voice
 (fixed-width extraction, the Sigma / Sigma-Sigma chains, the subtype-1 repeat
 anomaly in closed form, scale/mix accumulate, the first-sample fix-up);
-``decode93a.decode93a_frames_plain`` is OS93a Type-1's.  ``decode93_fb``
-decodes a session batch or a flat sweep from the bank columns (below): per
-output frame and voice, in channel order, the 93 body and then the 93a body,
-exactly as the reference's ``device_decode93`` chains them.  It launches
-``csrc/decode93_fb.cu`` for CUDA tensors and takes ``decode93_fb_plain``
-for CPU tensors.
+``decode93a.decode93a_frames_plain`` is OS93a Type-1's.
+``decode93_fb_plain`` decodes a session batch or a flat sweep from the bank
+columns (below): per output frame and voice, in channel order, the 93 body
+and then the 93a body, exactly as the reference's ``device_decode93`` chains
+them, into frame buffers.  ``decode93_pcm`` is the stage of every 1993 path:
+that decode, then ``transform.transform93_pcm``'s inverse transform and
+overlap resolve, bank columns in and PCM out.  It launches
+``csrc/decode93_pcm.cu`` for CUDA tensors, whose frame buffers never reach
+device memory, and takes ``decode93_pcm_plain`` (the composition of the two
+plain versions) for CPU tensors.  The kernels of the two halves,
+``kernels.decode93_fb`` and ``kernels.transform93_pcm``, are on no path.
 
 The bank columns (``models/catalogsweep.columns93``), one row per stream
 frame (row kinds: 0 silent, 1 the 93 bands, 2 OS93a Type-1):
@@ -50,6 +55,7 @@ from ..format import tables as T
 from ..refdec.bitreader import BitReader, PaddedView
 from ..refdec.frames import _read_huff93
 from . import decode93a, kernels
+from . import transform as tf
 from .decode93a import pool_bits, stream_bytes
 from .fixmath import M16, s16, sat16
 
@@ -411,10 +417,24 @@ COLUMNS = ("pool_u8", "frame_word", "sid", "kind_u8", "kw_u8", "bit_rel",
            "prv", "code_u8", "band_tab")
 
 
-def decode93_fb(cols, rows, mix, tabs):
-    """Bank columns -> frame buffers (see decode93_fb_plain): plain version
-    for CPU tensors, the CUDA kernel for CUDA tensors."""
+def decode93_pcm_plain(cols, rows, mix, vol_shift, sid, tabs, overlap0=None):
+    """Plain version of the decode93_pcm kernel: decode93_fb_plain, then
+    transform.transform93_pcm_plain.
+
+    cols, rows, mix: as decode93_fb_plain; vol_shift [F] and sid [F] (each
+    output frame's stream or session; the overlap carry resets where it
+    changes); tabs: codec_tables93.  Returns pcm [F, 240] int32 (u16
+    storage); with overlap0 [G, 16] (the carried state of each id), (pcm,
+    last_ov [G, 16]) as transform93_pcm_plain returns them."""
+    fb = decode93_fb_plain(cols, rows, mix, tabs)
+    return tf.transform93_pcm_plain(fb, vol_shift, sid, tabs, overlap0)
+
+
+def decode93_pcm(cols, rows, mix, vol_shift, sid, tabs, overlap0=None):
+    """Bank columns -> PCM (see decode93_pcm_plain): plain version for CPU
+    tensors, the CUDA kernel for CUDA tensors."""
     if mix.device.type == "cpu":
-        return decode93_fb_plain(cols, rows, mix, tabs)
-    return kernels.decode93_fb(*(cols[k] for k in COLUMNS), rows, mix,
-                               tabs["pair"], tabs["inputs"])
+        return decode93_pcm_plain(cols, rows, mix, vol_shift, sid, tabs,
+                                  overlap0)
+    return kernels.decode93_pcm(*(cols[k] for k in COLUMNS), rows, mix,
+                                vol_shift, sid, tabs, overlap0)

@@ -28,7 +28,8 @@ _REPO = os.path.dirname(_PKG)
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("decode94_fb.cu", "decode94_bank.cu", "dequant_mix.cu",
            "segments94.cu", "session_mix94.cu", "transform94.cu",
-           "transform94_pcm.cu", "decode93_fb.cu", "transform93_pcm.cu")
+           "transform94_pcm.cu", "decode93_fb.cu", "transform93_pcm.cu",
+           "decode93_pcm.cu")
 HEADERS = ("dcs_fixmath.cuh", "decode94_walk.cuh")
 LIB_PATH = os.path.join(_REPO, "build", "torch_kernels", "libdcs_torch.so")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -36,17 +37,19 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v")
 
 # launches per kernel; each wrapper adds one where it launches its kernel
-# (transform9x_pcm_carry: transform9x_pcm's instance with a carried state)
+# (x_carry: kernel x's instance with a carried overlap state)
 LAUNCHES = {"decode94_fb": 0, "decode94_bank": 0, "dequant_mix": 0,
             "segments94": 0, "session_mix94": 0, "transform94_planar": 0,
             "transform94_pcm": 0, "transform94_pcm_carry": 0,
             "decode93_fb": 0, "transform93_pcm": 0,
-            "transform93_pcm_carry": 0}
+            "transform93_pcm_carry": 0, "decode93_pcm": 0,
+            "decode93_pcm_carry": 0}
 
-# frames per block of csrc/transform94_pcm.cu and transform93_pcm.cu (their
-# kTile): a block transforms the frame before its tile again for the
-# overlap carry
+# frames per block of csrc/transform94_pcm.cu, transform93_pcm.cu and
+# decode93_pcm.cu (their kTile): a block transforms (and decodes) the frame
+# before its tile again for the overlap carry
 TRANSFORM94_PCM_TILE = TRANSFORM93_PCM_TILE = 64
+DECODE93_PCM_TILE = 63          # with the halo, 8 frames for each of 8 warps
 
 _lib = None
 
@@ -81,6 +84,14 @@ _SIGNATURES = {
     # fb, vol_shift, sid, tables (_PCM93_TABLES order), overlap0 (nullable),
     # last_ov (nullable), n_groups, pcm, n_frames, stream
     "dcs_transform93_pcm": [_P, _P, _P, *[_P] * 5, _P, _P, _I, _P, _I, _P],
+    # the columns as dcs_decode93_fb (pool .. pair, inputs), rows
+    # (nullable), mix, vol_shift, sid (of each output frame), tables
+    # (_DECODE93_PCM_TABLES order), overlap0 (nullable), last_ov (nullable),
+    # n_groups, pcm, n_frames, n_ch, n_rows, stream
+    "dcs_decode93_pcm": [_P, _LL, *[_P] * 8, _I, _P, _P, _P, _P, _P, _P,
+                         *[_P] * 4, _P, _P, _I, _P, _I, _I, _I, _P],
+    # mismatch count (uint64 on the card), stream
+    "dcs_normalize93_check": [_P, _P],
 }
 
 
@@ -376,12 +387,10 @@ def session_mix94(scaled, rows, mix):
     return out
 
 
-def decode93_fb(pool_u8, frame_word, sid, kind_u8, kw_u8, bit_rel, prv,
-                code_u8, band_tab, rows, mix, pair, inputs):
-    """1993-family frame buffers on the card (csrc/decode93_fb.cu): the bank
-    columns (ops/decode93.py) and rows [F, C] of them per output frame and
-    voice (None: the flat sweep, row f for frame f, mix [F]) with their
-    mixes -> [F, 512] int32; see decode93.decode93_fb_plain."""
+def _check_columns93(pool_u8, frame_word, sid, kind_u8, kw_u8, bit_rel, prv,
+                     code_u8, band_tab, rows, mix, pair, inputs):
+    """The 1993 bank columns, rows and mixes of decode93_fb and
+    decode93_pcm; returns (F, C)."""
     R = frame_word.shape[0]
     S = band_tab.shape[0]
     dev = pool_u8.device
@@ -405,19 +414,31 @@ def decode93_fb(pool_u8, frame_word, sid, kind_u8, kw_u8, bit_rel, prv,
         _check("mix", mix, torch.int32, (F, C), dev)
         if not 1 <= C <= MAX_CHANNELS:
             raise ValueError(f"{C} channels; expected 1..8")
-    # the kernel loads 4-byte pool words and 16-byte band-table rows
+    # the kernels load 4-byte pool words and 16-byte band-table rows
     for name, t, align in (("pool_u8", pool_u8, 4), ("band_tab", band_tab, 16)):
         if t.data_ptr() % align:
             raise ValueError(f"{name}: not {align}-byte aligned")
-    out = torch.empty((F, 512), dtype=torch.int32, device=dev)
+    return F, C
+
+
+def decode93_fb(pool_u8, frame_word, sid, kind_u8, kw_u8, bit_rel, prv,
+                code_u8, band_tab, rows, mix, pair, inputs):
+    """1993-family frame buffers on the card (csrc/decode93_fb.cu): the bank
+    columns (ops/decode93.py) and rows [F, C] of them per output frame and
+    voice (None: the flat sweep, row f for frame f, mix [F]) with their
+    mixes -> [F, 512] int32; see decode93.decode93_fb_plain."""
+    F, C = _check_columns93(pool_u8, frame_word, sid, kind_u8, kw_u8,
+                            bit_rel, prv, code_u8, band_tab, rows, mix, pair,
+                            inputs)
+    out = torch.empty((F, 512), dtype=torch.int32, device=pool_u8.device)
     if F:
-        _launch("decode93_fb", "dcs_decode93_fb", dev, pool_u8.data_ptr(),
-                pool_u8.numel(), frame_word.data_ptr(), sid.data_ptr(),
-                kind_u8.data_ptr(), kw_u8.data_ptr(), bit_rel.data_ptr(),
-                prv.data_ptr(), code_u8.data_ptr(), band_tab.data_ptr(), S,
-                pair.data_ptr(), inputs.data_ptr(),
-                None if rows is None else rows.data_ptr(), mix.data_ptr(),
-                out.data_ptr(), F, C, R)
+        _launch("decode93_fb", "dcs_decode93_fb", pool_u8.device,
+                pool_u8.data_ptr(), pool_u8.numel(), frame_word.data_ptr(),
+                sid.data_ptr(), kind_u8.data_ptr(), kw_u8.data_ptr(),
+                bit_rel.data_ptr(), prv.data_ptr(), code_u8.data_ptr(),
+                band_tab.data_ptr(), band_tab.shape[0], pair.data_ptr(),
+                inputs.data_ptr(), None if rows is None else rows.data_ptr(),
+                mix.data_ptr(), out.data_ptr(), F, C, frame_word.shape[0])
     return out
 
 
@@ -461,3 +482,72 @@ def transform93_pcm(fb, vol_shift, sid, tabs, overlap0=None):
                 0 if overlap0 is None else overlap0.shape[0],
                 pcm.data_ptr(), F)
     return pcm if overlap0 is None else (pcm, last_ov)
+
+
+# the codec tables decode93_pcm reads after the columns' pair and inputs,
+# in the order of its C arguments
+_DECODE93_PCM_TABLES = (("cos", 128), ("sin", 128), ("ovl_new", 16),
+                        ("ovl_old", 16))
+
+
+def decode93_pcm(pool_u8, frame_word, sid, kind_u8, kw_u8, bit_rel, prv,
+                 code_u8, band_tab, rows, mix, vol_shift, frame_sid, tabs,
+                 overlap0=None):
+    """1993-family PCM on the card (csrc/decode93_pcm.cu): the bank columns,
+    rows and mixes as decode93_fb takes them, vol_shift [F] and frame_sid
+    [F] (each output frame's stream or session) -> pcm [F, 240] int32, the
+    frame buffers kept on chip; see decode93.decode93_pcm_plain.  With
+    overlap0 [G, 16] the carry at a run's start is overlap0[frame_sid], and
+    the result is (pcm, last_ov [G, 16])."""
+    pair, inputs = tabs["pair"], tabs["inputs"]
+    F, C = _check_columns93(pool_u8, frame_word, sid, kind_u8, kw_u8,
+                            bit_rel, prv, code_u8, band_tab, rows, mix, pair,
+                            inputs)
+    dev = pool_u8.device
+    _check("vol_shift", vol_shift, torch.int32, (F,), dev)
+    _check("frame_sid", frame_sid, torch.int32, (F,), dev)
+    for name, n in _DECODE93_PCM_TABLES:
+        _check(name, tabs[name], torch.int32, (n,), dev)
+    pcm = torch.empty((F, 240), dtype=torch.int32, device=dev)
+    aligned = [("pcm", pcm)]
+    last_ov = None
+    if overlap0 is not None:
+        _check("overlap0", overlap0, torch.int32, (overlap0.shape[0], 16),
+               dev)
+        last_ov = overlap0.clone()        # ids with no frame keep theirs
+        aligned.append(("overlap0", overlap0))
+    # the kernel loads 16-byte words of overlap0 and stores them to pcm
+    for name, t in aligned:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: not 16-byte aligned")
+    if F:
+        _launch("decode93_pcm" if overlap0 is None else "decode93_pcm_carry",
+                "dcs_decode93_pcm", dev, pool_u8.data_ptr(), pool_u8.numel(),
+                frame_word.data_ptr(), sid.data_ptr(), kind_u8.data_ptr(),
+                kw_u8.data_ptr(), bit_rel.data_ptr(), prv.data_ptr(),
+                code_u8.data_ptr(), band_tab.data_ptr(), band_tab.shape[0],
+                pair.data_ptr(), inputs.data_ptr(),
+                None if rows is None else rows.data_ptr(), mix.data_ptr(),
+                vol_shift.data_ptr(), frame_sid.data_ptr(),
+                *[tabs[name].data_ptr() for name, _ in _DECODE93_PCM_TABLES],
+                None if overlap0 is None else overlap0.data_ptr(),
+                None if last_ov is None else last_ov.data_ptr(),
+                0 if overlap0 is None else overlap0.shape[0],
+                pcm.data_ptr(), F, C, frame_word.shape[0])
+    return pcm if overlap0 is None else (pcm, last_ov)
+
+
+def normalize93_check(device):
+    """The number of the 2^32 inputs on which decode93_pcm.cu's closed-form
+    normalize (__clz) and the reference's 31-step loop disagree, counted on
+    the card (``device``).  Not a kernel of any path: no launch count."""
+    dev = torch.device(device)
+    if dev.type != "cuda":
+        raise ValueError("normalize93_check runs on a CUDA device")
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    fn = load().dcs_normalize93_check
+    with torch.cuda.device(dev):
+        err = fn(bad.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"normalize93_check: CUDA error {err} at launch")
+    return int(bad.item())

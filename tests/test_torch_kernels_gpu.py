@@ -18,8 +18,12 @@ crossing tiles, and a served batch on the card against the CPU; for the
 1993 family, bank rows of both kinds over random chain states and scale
 codes in C = 1, 6 and 8 voices, row 0 and all-silent frames, a pool that
 ends inside a frame, the transform-to-PCM kernel at its tile edges with and
-without a carried state, the flat sweep and a served batch on the card
-against the CPU.  Every comparison is bit for bit.  chip_smoke.py covers
+without a carried state, the fused decode93_pcm kernel on the same inputs
+plus every band kind and width at random, frame counts around its tile and
+streams that cross it (so the halo frame is decoded), the closed-form
+normalize of its square root on all 2^32 inputs, the flat sweep and a
+served batch on the card against the CPU.  Every comparison is bit for
+bit.  chip_smoke.py covers
 the real catalogs and the full-width session6 and session93a batches.
 """
 
@@ -238,7 +242,8 @@ def test_sweep_on_the_card_equals_the_cpu_sweep(dev):
                         "dequant_mix": 0, "segments94": 0, "session_mix94": 0,
                         "transform94_planar": 0, "transform94_pcm": 1,
                         "transform94_pcm_carry": 0, "decode93_fb": 0,
-                        "transform93_pcm": 0, "transform93_pcm_carry": 0}
+                        "transform93_pcm": 0, "transform93_pcm_carry": 0,
+                        "decode93_pcm": 0, "decode93_pcm_carry": 0}
 
 
 # -- the session path --------------------------------------------------------
@@ -398,7 +403,8 @@ def test_session_server_on_the_card_equals_the_cpu_server(dev):
                         "dequant_mix": 0, "segments94": 3, "session_mix94": 3,
                         "transform94_planar": 0, "transform94_pcm": 3,
                         "transform94_pcm_carry": 0, "decode93_fb": 0,
-                        "transform93_pcm": 0, "transform93_pcm_carry": 0}
+                        "transform93_pcm": 0, "transform93_pcm_carry": 0,
+                        "decode93_pcm": 0, "decode93_pcm_carry": 0}
 
 
 # -- the 1993 family -----------------------------------------------------------
@@ -587,7 +593,7 @@ def test_flat93_sweep_on_the_card_equals_the_cpu_sweep(dev):
                                                                 "cpu"))
         assert torch.equal(want, got.cpu())
         assert {k: v for k, v in launched.items() if v} == {
-            "decode93_fb": 1, "transform93_pcm": 1}
+            "decode93_pcm": 1}
 
 
 def test_1993_session_server_on_the_card_equals_the_cpu_server(dev, rom93):
@@ -608,11 +614,150 @@ def test_1993_session_server_on_the_card_equals_the_cpu_server(dev, rom93):
     assert all(np.array_equal(w, g) for w, g in zip(want, got))
     assert all(np.abs(g).max() > 0 for g in got)
     assert {k: v for k, v in launched.items() if v} == {
-        "segments94": 3, "decode93_fb": 3, "transform93_pcm": 3}
+        "segments94": 3, "decode93_pcm": 3}
     # a single session carries its overlap state: the carry instance
-    before = kernels.LAUNCHES["transform93_pcm_carry"]
+    before = kernels.LAUNCHES["decode93_pcm_carry"]
     one, _ = romplay.play_session(
         rs, {f: (lambda d, bs=tuple(bs): [d.write_data_port(x) for x in bs])
              for f, bs in batches[0][0].items()}, T, bank=bank)
-    assert kernels.LAUNCHES["transform93_pcm_carry"] == before + 1
+    assert kernels.LAUNCHES["decode93_pcm_carry"] == before + 1
     assert np.array_equal(one, got[0][0])
+
+
+# -- the fused 1993 kernel (decode93_pcm) ------------------------------------
+
+def _decode93_pcm_both(cols, rows, mix, vol, sid, tabs93, ov0=None):
+    want = d93.decode93_pcm_plain(cols, rows, mix, vol, sid, tabs93, ov0)
+    got = kernels.decode93_pcm(*(cols[k] for k in d93.COLUMNS), rows, mix,
+                               vol, sid, tabs93, ov0)
+    torch.cuda.synchronize()
+    if ov0 is None:
+        return [(want, got)]
+    assert torch.equal(got[1][-1], ov0[-1])          # an id with no frames
+    return list(zip(want, got))
+
+
+@pytest.mark.parametrize("t1", [False, True])
+def test_decode93_pcm_kernel_on_the_flat_assets(dev, tabs93, t1):
+    cols = _flat93_columns(t1, dev)
+    for want, got in _decode93_pcm_both(cols, None, cols["mix"], cols["vol"],
+                                        cols["sid"], tabs93):
+        assert got.shape == (cols["frame_word"].shape[0], 240)
+        assert torch.equal(want, got)
+
+
+def _random_kinds(cols, seed, silent=0.0):
+    """Every 93 band kind and width 1..24 at random on the 93 rows, and
+    K_NONE on a further share ``silent`` of the bands (0.6: most rows have
+    at most 8 bands with samples, the kernel's 4-lanes-a-band layout)."""
+    g = torch.Generator(device=cols["kw_u8"].device).manual_seed(seed)
+    dev = cols["kw_u8"].device
+    R = cols["kw_u8"].shape[0]
+    kw = cols["kw_u8"].long()
+    kind = torch.randint(0, 6, (R, 16), generator=g, device=dev)
+    kind[torch.rand((R, 16), generator=g, device=dev) < silent] = 0
+    w = torch.randint(1, 25, (R, 16), generator=g, device=dev)
+    is93 = (cols["kind_u8"] == d93.ROW_93)[:, None]
+    kw[:, :16] = torch.where(is93, kind << 5 | w, kw[:, :16])
+    return dict(cols, kw_u8=kw.to(torch.uint8))
+
+
+T93P = kernels.DECODE93_PCM_TILE
+
+
+@pytest.mark.parametrize("C", [1, 6, 8])
+@pytest.mark.parametrize("n", [1, T93P - 1, T93P, T93P + 1, 65, 197])
+def test_decode93_pcm_kernel_on_random_rows(dev, tabs93, rom93, C, n):
+    # rows of both kinds and row 0 in every voice, mixes over the u16 range;
+    # the bank's columns, random chain states and scale codes, and random
+    # band kinds, most of them silent or not; sessions of one frame, runs
+    # that cross the kernel's tile (the halo frame is decoded again) and
+    # starts at its edges; flat and with random carried states
+    bank = rom93[1]
+    g = torch.Generator(device=dev).manual_seed(C * 1000 + n)
+    R = bank.total_rows()
+    rows = torch.randint(0, R, (n, C), generator=g, device=dev,
+                         dtype=torch.int32)
+    rows[torch.rand((n, C), generator=g, device=dev) < 0.2] = 0
+    rows[:1] = 0                                     # an all-silent frame
+    mix = torch.randint(0, 1 << 16, (n, C), generator=g, device=dev,
+                        dtype=torch.int32)
+    vol = torch.randint(0, 41, (n,), generator=g, device=dev,
+                        dtype=torch.int32)
+    rng = np.random.default_rng(C * 1000 + n)
+    runs = np.repeat(np.arange(n), rng.integers(1, 2 * T93P, size=n))[:n]
+    edges = np.searchsorted([T93P - 1, T93P, T93P + 1], np.arange(n),
+                            "right")
+    rand = _random_columns(bank.cols, C)
+    for cols in (bank.cols, rand, _random_kinds(rand, C),
+                 _random_kinds(rand, C, 0.6)):
+        for sid in (np.zeros(n), np.arange(n), runs, 2 * edges + 1):
+            sid_t = torch.tensor(sid.astype(np.int32), device=dev)
+            G = int(sid.max()) + 3
+            ov0 = torch.tensor(rng.integers(0, 0x10000, size=(G, 16))
+                               .astype(np.int32), device=dev)
+            for o in (None, ov0):
+                for want, got in _decode93_pcm_both(cols, rows, mix, vol,
+                                                    sid_t, tabs93, o):
+                    assert torch.equal(want, got)
+
+
+def test_decode93_pcm_kernel_on_silent_bands_and_a_short_pool(dev, tabs93):
+    # every 93 band K_NONE on some frames, and pools that end inside the
+    # last frames (bits past the end read as $FF)
+    cols = dict(_flat93_columns(False, dev))
+    kw = cols["kw_u8"].clone()
+    kw[::7] = 0
+    cols["kw_u8"] = kw
+    F = cols["frame_word"].shape[0]
+    cols["pool_u8"] = cols["pool_u8"][:int(cols["frame_word"][F - 3]) * 4
+                                      + 37].clone()
+    t1 = dict(_flat93_columns(True, dev))
+    F1 = t1["frame_word"].shape[0]
+    t1["pool_u8"] = t1["pool_u8"][:int(t1["frame_word"][F1 - 2]) * 4 + 5] \
+        .clone()
+    for c in (cols, t1):
+        for want, got in _decode93_pcm_both(c, None, c["mix"], c["vol"],
+                                            c["sid"], tabs93):
+            assert torch.equal(want, got)
+
+
+def test_normalize93_closed_form_on_every_input(dev):
+    # decode93_pcm.cu's __clz normalize against the reference's 31-step
+    # loop, on all 2^32 inputs
+    assert kernels.normalize93_check(dev) == 0
+
+
+def test_decode93_pcm_wrapper_refuses_bad_tensors(dev, tabs93):
+    cols = _flat93_columns(False, dev)
+    args = [cols[k] for k in d93.COLUMNS]
+    F = cols["frame_word"].shape[0]
+
+    def run(args=args, rows=None, mix=cols["mix"], vol=cols["vol"],
+            sid=cols["sid"], ov0=None):
+        return kernels.decode93_pcm(*args, rows, mix, vol, sid, tabs93, ov0)
+
+    bad = list(args)
+    bad[0] = cols["pool_u8"][1:]
+    with pytest.raises(ValueError, match="aligned"):
+        run(bad)
+    bad = list(args)
+    bad[4] = cols["kind_u8"].int()
+    with pytest.raises(TypeError):
+        run(bad)
+    with pytest.raises(TypeError):
+        run(vol=cols["vol"].long())
+    with pytest.raises(ValueError, match="shape"):
+        run(sid=cols["sid"][1:])
+    with pytest.raises(ValueError, match="contiguous"):
+        run(vol=torch.zeros((F, 2), dtype=torch.int32, device=dev)[:, 0])
+    with pytest.raises(ValueError, match="CUDA"):
+        run(vol=cols["vol"].cpu())
+    nine = torch.zeros((4, 9), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="channels"):
+        run(rows=nine, mix=nine)
+    with pytest.raises(ValueError, match="shape"):
+        run(ov0=torch.zeros((2, 8), dtype=torch.int32, device=dev))
+    skewed = torch.zeros(2 * 16 + 1, dtype=torch.int32, device=dev)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        run(ov0=skewed.view(2, 16))
