@@ -13,7 +13,10 @@ non-zero):
   3. each kernel against its plain PyTorch version on the card, at that
      catalog's real intermediates, bit for bit; both timed with CUDA events,
      beside the kernel's bound (the larger of bytes over 3.35 TB/s and
-     integer operations over 33.5 TOP/s)
+     integer operations over 33.5 TOP/s).  A kernel's time is the card's
+     (_device_ms: its launches queue behind a device sleep that outlasts
+     the host's enqueue of all of them, or the timer raises); a plain
+     version's is the rate at which the host enqueues it (_time_ms)
   4. the whole sweep through FlatPipeline on the card: the launch counters
      of the flat path's kernels (decode94_fb, transform94_pcm) must move,
      PCM must equal the plain-version sweep; timed as x realtime of decoded
@@ -30,7 +33,8 @@ non-zero):
      through play_session (the carried-state transform94_pcm); the launch
      counters of decode94_bank, segments94, session_mix94, transform94_pcm
      and transform94_pcm_carry must move.  The bank, all 2,778 rows, against
-     decode94_bank_plain on the same columns on the card, bit for bit
+     decode94_bank_plain on the same columns on the card, bit for bit, and
+     decode94_bank held and timed at that shape as in phase 3
   8. that batch's PCM against the same batch through the plain versions on
      the card, session 0 against play_session's, and the first and last
      sessions against the port's scalar ReferenceDecoder driven by the same
@@ -38,7 +42,8 @@ non-zero):
      versions at the batch's shapes (as phase 3, with a random carried
      overlap state for transform94_pcm_carry)
   9. session timing: the device time of one batch (x realtime) and its
-     stage spans, serve() x realtime over 8 batches (trace -> wire ->
+     stage spans (segments94's kernel time beside its span), serve()
+     x realtime over 8 batches (trace -> wire ->
      upload -> kernels -> PCM fetch; all 8 batches' audio over the time from
      the call to the last arrival) with every gap between arrivals and each
      batch's latency from the start of its trace, the native trace and the
@@ -65,13 +70,15 @@ non-zero):
      server, session 0 play_session's, sessions 0 and 319 the scalar
      decoder over 250 frames, and no session is silent
  12. decode93_pcm.cu's closed-form normalize against the 31-step loop on
-     all 2^32 inputs; the 1993 kernels against their plain versions at the
-     paths' shapes, timed beside their bounds as in phase 3: decode93_pcm
+     all 2^32 inputs; segments94 on the session93a wire, and the 1993
+     kernels, against their plain versions at the paths' shapes, timed
+     beside their bounds as in phase 3: decode93_pcm
      on both sweeps, on the session batch (C = 6, both kinds) and on the
      batch with a random carried state (decode93_pcm_carry), each beside
      the sum of the pair it replaced, decode93_fb + transform93_pcm (on no
      path), held and timed at the same shapes; the stage spans of the
-     dec93b sweep and of one session93a batch; the batch's device time,
+     dec93b sweep and of one session93a batch (segments94's kernel time
+     beside its span); the batch's device time,
      serve() x realtime over 8 batches with every gap and latency as in
      phase 9, the native trace, and the peak device memory of one batch
 Then one JSON line of per-kernel results (launches: over all four paths,
@@ -108,7 +115,10 @@ def _read(path):
 
 
 def _time_ms(fn, reps, torch):
-    """Mean ms per call on the card, after one warm-up call."""
+    """Mean ms per call, after one warm-up call, between two CUDA events
+    around the calls as the host enqueues them: where a call's host side
+    outlasts its device side, this is the host's rate (the plain versions'
+    timer)."""
     fn()
     start = torch.cuda.Event(enable_timing=True)
     stop = torch.cuda.Event(enable_timing=True)
@@ -116,6 +126,28 @@ def _time_ms(fn, reps, torch):
     for _ in range(reps):
         fn()
     stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / reps
+
+
+def _device_ms(fn, reps, torch, sleep_s=0.05):
+    """Mean device ms per call, after one warm-up call: the calls queue
+    behind a device sleep of sleep_s, so the card runs them back to back
+    whatever the host's cost of a call.  Raises if the sleep had ended
+    before the host finished enqueuing them (the window would then hold
+    host gaps)."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(sleep_s * 1.98e9))
+    start.record()
+    for _ in range(reps):
+        fn()
+    stop.record()
+    if start.query():
+        raise RuntimeError(f"the host took over {sleep_s} s to enqueue "
+                           f"{reps} calls: the device sleep ran out")
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
 
@@ -255,6 +287,14 @@ def main():
     n_symbols = int((packed[:, :n_steps] != 0).sum())
     del header, fmt, sub, bt, btp, packed
 
+    def walk_symbols(c, steps):
+        """The symbols a walk over these compact columns decodes."""
+        unpacked = bd.unpack_columns(c["sid"], c["bt_u8"], c["hdr_tab"],
+                                     c["fmt_tab"], c["sub_tab"])
+        p, _, _ = bd.slot_controls(bd.band_controls_dyn(*unpacked[:5], tabs),
+                                   tabs)
+        return int((p[:, :steps] != 0).sum())
+
     results = {}   # name -> dict of the kernels line
     times = {}     # check label -> kernel ms
     where = {      # name -> (source in csrc/, the TPU code it replaces)
@@ -291,7 +331,7 @@ def main():
             raise AssertionError(f"{label}: kernel != plain (max abs err "
                                  f"{err})")
         plain_ms = _time_ms(plain_fn, reps_plain, torch)
-        ms = _time_ms(kern_fn, reps_kern, torch)
+        ms = _device_ms(kern_fn, reps_kern, torch)
         bound_ms, bound_by = _bound(n_bytes, n_ops)
         times[label] = ms
         print(f"phase {phase} {label}: bit-exact, kernel {ms:.4f} ms, "
@@ -319,9 +359,9 @@ def main():
     # the same launch with no position to walk: the table copies and the
     # stores of all-zero frame buffers, the floor under the walk
     no_walk = dict(cols, n_steps=0)
+    no_walk_ms = _device_ms(lambda: kernels.decode94_fb(**no_walk), 20, torch)
     print(f"phase 3 decode94_fb with n_steps 0 (no walk, stores only): "
-          f"{_time_ms(lambda: kernels.decode94_fb(**no_walk), 20, torch):.4f}"
-          f" ms")
+          f"{no_walk_ms:.4f} ms")
 
     # decode94_bank on the same columns without the mix: the walk, and one
     # 512-byte row of scaled samples a frame; ~4 integer operations a
@@ -387,7 +427,7 @@ def main():
     if not bool((pcm >= 0).all() & (pcm <= 0xFFFF).all()):
         raise AssertionError("sweep PCM outside u16 storage")
     del pcm_plain
-    sweep_ms = _time_ms(lambda: pipe(**args), 5, torch)
+    sweep_ms = _device_ms(lambda: pipe(**args), 5, torch)
     # the host's side of one sweep: the time to enqueue it, with the card
     # idle at the start and no synchronise inside the timer
     enqueue = []
@@ -510,13 +550,23 @@ def main():
     if err != 0 or want_bank.shape != bank.scaled.shape:
         raise AssertionError(f"session6 bank != decode94_bank_plain (max abs "
                              f"err {err})")
-    del bargs, want_bank
+    del want_bank
     print(f"phase 7 sessions: session6.zip, bank {bank.total_rows()} rows "
           f"built in {bank_s:.3f} s (load + prescan + decode94_bank), "
           f"bit-exact with decode94_bank_plain (n_steps {b_steps}); one "
           f"batch of {S} sessions x {T} frames x {C} voices "
           f"({session_audio_s:.1f} s audio) through SessionServer and "
           f"session 0 through play_session, launches {s_launches}")
+    # decode94_bank at the bank's own shape (phase 3 times it at the flat
+    # catalog's): bytes and operations counted as there
+    Nb, Sb = bargs["sid"].shape[0], bargs["hdr_tab"].shape[0]
+    check("decode94_bank",
+          lambda: bd.decode94_bank_plain(**bargs, n_steps=b_steps, tabs=tabs),
+          lambda: kernels.decode94_bank(**bargs, n_steps=b_steps, tabs=tabs),
+          2, 20, Nb * (4 + 4 + 16) + bargs["pool_u8"].numel() + Sb * 18
+          + (Nb + 1) * 256 * 2, 4 * walk_symbols(bargs, b_steps), phase=7,
+          shape=f"session6 bank, {Nb + 1} rows, n_steps {b_steps}")
+    del bargs
 
     # 8. the batch against the plain path on the card and the scalar decoder
     with romplay.SessionServer(rs, S, T, n_ch=C, seg_e=SEG_E, bank=bank,
@@ -559,11 +609,12 @@ def main():
     tabs = dict(srv.decoder.named_buffers())
     scaled, F, R = srv.decoder.scaled, S * T, bank.total_rows()
     # segments94 reads the wire and writes rows, mix [F, C] and vol [F]; a
-    # binary search of log2(E) steps and a multiply-add an output
+    # compare (does the next segment start here?) and a multiply-add an
+    # output
     rows, mixes, vols = check(
         "segments94", lambda: romplay.segments94_plain(wire, S, T, C, E),
         lambda: kernels.segments94(wire, S, T, C, E), 2, 20,
-        wire.numel() + F * C * 8 + F * 4, F * C * (2 * 5 + 3), phase=8)
+        wire.numel() + F * C * 8 + F * 4, F * C * 3, phase=8)
     # session_mix94 reads rows, mix and the bank once and writes [F, 512];
     # ~3 operations per position and voice (multiply-add, shift)
     fbs = check(
@@ -584,7 +635,7 @@ def main():
         r["launches"] += s_launches[k]
 
     # 9. session timing
-    batch_ms = _time_ms(lambda: srv.decode_wire(wire, E), 5, torch)
+    batch_ms = _device_ms(lambda: srv.decode_wire(wire, E), 5, torch)
     names = ("segments94", "session_mix94", "transform94_pcm", "int16")
     spans = {k: [] for k in names}
     for rep in range(4):
@@ -654,7 +705,10 @@ def main():
     print(f"phase 9 sessions: device time of one batch {batch_ms:.4f} ms = "
           f"{session_audio_s / (batch_ms / 1e3):.1f}x realtime; spans (ms, "
           f"mean of 3) " + ", ".join(f"{k} {v:.4f}" for k, v in smean.items())
-          + f", sum {sum(smean.values()):.4f}; serve() over {n_batches} "
+          + f", sum {sum(smean.values()):.4f} (segments94's kernel time "
+          f"{times['segments94']:.4f} ms = "
+          f"{times['segments94'] / smean['segments94']:.3f} of its span); "
+          f"serve() over {n_batches} "
           f"batches {serve_x:.1f}x realtime (ms from the call to the first "
           f"arrival, then between arrivals: "
           + ", ".join(f"{g:.1f}" for g in gaps) + "; latency from the start "
@@ -726,7 +780,7 @@ def main():
         if not bool((pcm >= 0).all() & (pcm <= 0xFFFF).all()):
             raise AssertionError(f"{name}: sweep PCM outside u16 storage")
         audio93 = sw93["sweep"].audio_samples / fs.SAMPLE_RATE
-        ms = _time_ms(lambda: pipe93(**cols93), 5, torch)
+        ms = _device_ms(lambda: pipe93(**cols93), 5, torch)
         enqueue = []
         for _ in range(5):
             torch.cuda.synchronize()
@@ -956,6 +1010,10 @@ def main():
     # and with a random carried state
     wire_np93, E93 = srv93.prepare(batch)
     wire93 = torch.tensor(wire_np93, device=dev)
+    check("segments94", lambda: romplay.segments94_plain(wire93, S, T, C, E93),
+          lambda: kernels.segments94(wire93, S, T, C, E93), 2, 20,
+          wire93.numel() + S * T * C * 8 + S * T * 4, S * T * C * 3,
+          phase=12, shape="session93a wire")
     rows93, mixes93, vols93 = romplay.segments94(wire93, S, T, C, E93)
     bcols = dict(srv93.decoder.named_buffers())
     bkind = bcols["kind_u8"][rows93.long()]
@@ -1019,7 +1077,8 @@ def main():
     if not np.array_equal(out.reshape(S, -1).cpu().numpy(), got93):
         raise AssertionError("session93a span run != served batch")
     del out, ctl
-    batch93_ms = _time_ms(lambda: srv93.decode_wire(wire93, E93), 5, torch)
+    batch93_ms = _device_ms(lambda: srv93.decode_wire(wire93, E93), 5,
+                            torch)
     trace93 = []
     for k in range(3):
         t0 = time.perf_counter()
@@ -1035,12 +1094,14 @@ def main():
     torch.cuda.synchronize()
     peak93 = torch.cuda.max_memory_allocated(dev)
     srv93.close()
+    seg93 = times["segments94 (session93a wire)"]
     fmt_spans = lambda sp: ", ".join(f"{k} {v:.4f}" for k, v in sp.items()) \
         + f", sum {sum(sp.values()):.4f}"
     print(f"phase 12 spans (ms, mean of 3): dec93b sweep "
           f"{fmt_spans(sweep_spans)} (the compact wire's unpack runs on the "
           f"host in packed93_to_device, phase 10); session93a batch "
-          f"{fmt_spans(batch_spans)}")
+          f"{fmt_spans(batch_spans)} (segments94's kernel time {seg93:.4f} "
+          f"ms = {seg93 / batch_spans['segments94']:.3f} of its span)")
     print(f"phase 12 sessions93: device time of one batch {batch93_ms:.4f} "
           f"ms = {session_audio_s / (batch93_ms / 1e3):.1f}x realtime; "
           f"serve() over {n_batches} batches {serve93_x:.1f}x realtime (ms "

@@ -181,6 +181,9 @@ def _launch(kernel, c_name, device, *args):
     LAUNCHES[kernel] += 1
 
 
+# the largest byte pool of decode94_fb and decode94_bank (a 32-bit cursor)
+MAX_POOL_BYTES = 1 << 28
+
 # the codec tables decode94_fb and decode94_bank read, in the order of their
 # C arguments
 _FB_TABLES = (("out_count", (16,)), ("xt_by_band", (16, 16)),
@@ -211,6 +214,10 @@ def _check_columns(pool_u8, sid, start_bit, bt_u8, hdr_tab, fmt_tab,
             raise ValueError(f"{name}: not {align}-byte aligned")
     if n_steps < 0:
         raise ValueError(f"n_steps {n_steps}")
+    # the walk's bit cursor is 32-bit
+    if pool_u8.numel() >= MAX_POOL_BYTES:
+        raise ValueError(f"pool of {pool_u8.numel()} bytes; the kernels take "
+                         f"fewer than 2^28")
 
 
 def decode94_fb(pool_u8, sid, start_bit, bt_u8, mix, hdr_tab, fmt_tab,
@@ -353,7 +360,8 @@ def segments94(wire, S, T, C, E):
     if not (1 <= C <= MAX_CHANNELS and 1 <= E <= MAX_SEGMENTS):
         raise ValueError(f"{C} channels of {E} segments; expected 1..8 "
                          "and 1..255")
-    if not (S >= 0 and 0 <= T < 0xFFFF):
+    if not (S >= 0 and 0 <= T < 0xFFFF and S * T * C < 1 << 31
+            and 7 * S * C * E + S * T < 1 << 31):
         raise ValueError(f"{S} sessions of {T} frames")
     dev = wire.device
     _check("wire", wire, torch.uint8, (7 * S * C * E + S * T,))

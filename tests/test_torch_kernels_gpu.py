@@ -12,9 +12,14 @@ streams that cross block boundaries so a frame's previous band types sit in
 another block, bit cursors running past the end of a pool whose length is
 not a multiple of 4, random prior frame buffers, saturating frame buffers
 and volume shifts past 31, stream starts at the transform-to-PCM kernel's
-tile edges; for the session path, bank rows over the whole u16 range,
-segment tables of 1 to 255 entries, carried overlap states with sessions
-crossing tiles, and a served batch on the card against the CPU; for the
+tile edges, warps whose frames' band lists all end early, frames laid
+out in order in the pool (the walk's shared-memory copy of it) beside
+frames far apart, a pool of 2^28 bytes (refused); for the session path,
+bank rows over the whole u16 range, segment tables of 1 to 255 entries
+with equal and unused entries in 1 to 8 channels, frame counts that are
+not a multiple of 4 and over a thousand sessions, the session6 bank,
+carried overlap states with sessions crossing tiles, and a served batch
+on the card against the CPU; for the
 1993 family, bank rows of both kinds over random chain states and scale
 codes in C = 1, 6 and 8 voices, row 0 and all-silent frames, a pool that
 ends inside a frame, the transform-to-PCM kernel at its tile edges with and
@@ -302,6 +307,43 @@ def test_segments94_kernel_on_random_tables(dev, E):
         assert all(torch.equal(w, k) for w, k in zip(want, got)), (S, T, C)
 
 
+def _tied_wire(S, T, C, E, seed):
+    """A control wire with the entries segments94's design turns on: equal
+    f0 entries (the last of them counts), lanes of one segment with $FFFF
+    after it, lanes whose first segment starts after frame 0 (segment 0
+    stands in before it), slopes over the u8 range, bases over u16."""
+    rng = np.random.default_rng(seed)
+    f0 = np.full((S, C, E), 0xFFFF, np.int64)
+    n = rng.integers(1, E + 1, size=(S, C))
+    n[rng.random((S, C)) < 0.2] = 1
+    for s in range(S):
+        for c in range(C):
+            k = int(n[s, c])
+            f0[s, c, :k] = np.sort(rng.integers(0, T, size=k))
+            if rng.random() < 0.7:
+                f0[s, c, 0] = 0
+    comp = dict(f0=f0.astype(np.uint16),
+                base=rng.integers(0, 1 << 16, (S, C, E)).astype(np.uint16),
+                slope=rng.integers(0, 256, (S, C, E)).astype(np.uint8),
+                mixv=rng.integers(0, 1 << 16, (S, C, E)).astype(np.uint16))
+    vol = rng.integers(0, 256, (S, T)).astype(np.uint8)
+    return romplay.pack_controls_wire(comp, vol)
+
+
+@pytest.mark.parametrize("C", range(1, 9))
+@pytest.mark.parametrize("E", [1, 32, 255])
+def test_segments94_kernel_on_tied_and_unused_entries(dev, C, E):
+    # frame counts that are not a multiple of 4 (a thread's frames cross
+    # sessions) or are under 4, one session, and over a thousand sessions
+    for S, T in ((1, 1), (1, 1003), (3, 7), (2, 2), (1001, 13), (4, 256)):
+        wire = torch.tensor(_tied_wire(S, T, C, E, 1000 * E + 10 * C + S),
+                            device=dev)
+        want = romplay.segments94_plain(wire, S, T, C, E)
+        got = kernels.segments94(wire, S, T, C, E)
+        torch.cuda.synchronize()
+        assert all(torch.equal(w, k) for w, k in zip(want, got)), (S, T)
+
+
 @pytest.mark.parametrize("n", [1, T - 1, T + 1, 5 * T + 3])
 def test_transform94_pcm_kernel_carries_overlap(dev, tabs, n):
     # random carried states; sessions of 1 frame, sessions crossing tiles,
@@ -354,6 +396,92 @@ def test_decode94_bank_kernel_on_random_streams(dev, tabs, n_steps):
     got = kernels.decode94_bank(**cols, n_steps=n_steps, tabs=tabs)
     torch.cuda.synchronize()
     assert torch.equal(want, got)
+
+
+def test_decode94_bank_kernel_on_the_session6_bank(dev, tabs):
+    rs, _ = zipload.load_zip_file(SESSION6_ZIP)
+    rs.check()
+    bank = romplay.build_rom_bank(rs, dev)
+    cols = bank.columns()
+    n_steps = cols.pop("n_steps")
+    cols = {k: torch.tensor(v, device=dev) for k, v in cols.items()}
+    want = bd.decode94_bank_plain(**cols, n_steps=n_steps, tabs=tabs)
+    torch.cuda.synchronize()
+    assert bank.scaled.shape == (2778, 256)
+    assert torch.equal(want, bank.scaled)
+
+
+@pytest.mark.parametrize("n_steps", [256, 100, 0])
+def test_decode94_bank_kernel_at_the_session6_size(dev, tabs, n_steps):
+    # random streams in as many frames as session6's bank (22 blocks)
+    cols = _random_catalog(2777, 10 + n_steps, dev)
+    del cols["mix"]
+    want = bd.decode94_bank_plain(**cols, n_steps=n_steps, tabs=tabs)
+    got = kernels.decode94_bank(**cols, n_steps=n_steps, tabs=tabs)
+    torch.cuda.synchronize()
+    assert torch.equal(want, got)
+
+
+def test_decode94_bank_kernel_on_a_pool_ending_mid_window(dev, tabs):
+    # 4k + 3 pool bytes: the last frames read past the pool's end
+    cols = _random_catalog(1024, 6, dev, pool_len=403, bt_max=20)
+    del cols["mix"]
+    cols["start_bit"] = torch.clamp(cols["start_bit"], min=403 * 8 - 300)
+    want = bd.decode94_bank_plain(**cols, n_steps=256, tabs=tabs)
+    got = kernels.decode94_bank(**cols, n_steps=256, tabs=tabs)
+    torch.cuda.synchronize()
+    assert torch.equal(want, got)
+
+
+@pytest.mark.parametrize("kernel", ["decode94_fb", "decode94_bank"])
+def test_decode94_kernels_on_warps_that_end_early(dev, tabs, kernel):
+    # most streams' band lists end at band 0..3 (a $7F terminator), so
+    # whole warps stop their walk long before n_steps, beside warps that
+    # run to it
+    cols = _random_catalog(4099, 77, dev)
+    rng = np.random.default_rng(78)
+    S = cols["hdr_tab"].shape[0]
+    cut = torch.tensor(rng.integers(0, 4, S), device=dev)
+    short = torch.tensor(rng.random(S) < 0.6, device=dev)
+    band = torch.arange(16, device=dev)
+    cols["hdr_tab"][short[:, None] & (band[None, :] == cut[:, None])] = 0x7F
+    if kernel == "decode94_bank":
+        del cols["mix"]
+    want = getattr(bd, kernel + "_plain")(**cols, n_steps=256, tabs=tabs)
+    got = getattr(kernels, kernel)(**cols, n_steps=256, tabs=tabs)
+    torch.cuda.synchronize()
+    assert torch.equal(want, got)
+
+
+@pytest.mark.parametrize("kernel", ["decode94_fb", "decode94_bank"])
+def test_decode94_kernels_on_frames_laid_out_in_order(dev, tabs, kernel):
+    # random frames that follow each other in the pool, as a catalog's do,
+    # so a block's stretch of the pool fits in shared memory; a few frames
+    # jump far ahead, so some blocks in the same launch read it from
+    # global memory; the last frames run past the pool's end
+    cols = _random_catalog(4099, 91, dev, pool_len=300_003)
+    rng = np.random.default_rng(92)
+    gaps = rng.integers(0, 900, size=4099)
+    gaps[rng.random(4099) < 0.002] = 200_000
+    start = np.minimum(np.cumsum(gaps), 300_003 * 8 - 100)
+    cols["start_bit"] = torch.tensor(start.astype(np.int32), device=dev)
+    if kernel == "decode94_bank":
+        del cols["mix"]
+    want = getattr(bd, kernel + "_plain")(**cols, n_steps=256, tabs=tabs)
+    got = getattr(kernels, kernel)(**cols, n_steps=256, tabs=tabs)
+    torch.cuda.synchronize()
+    assert torch.equal(want, got)
+
+
+def test_decode94_wrappers_refuse_a_pool_of_2_28_bytes(dev, tabs):
+    # the walk's bit cursor is 32-bit
+    cols = _random_catalog(64, 0, dev)
+    cols["pool_u8"] = torch.zeros(1 << 28, dtype=torch.uint8, device=dev)
+    with pytest.raises(ValueError, match="2\\^28"):
+        kernels.decode94_fb(**cols, n_steps=8, tabs=tabs)
+    del cols["mix"]
+    with pytest.raises(ValueError, match="2\\^28"):
+        kernels.decode94_bank(**cols, n_steps=8, tabs=tabs)
 
 
 def test_session_wrappers_refuse_bad_tensors(dev, tabs):
