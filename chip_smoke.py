@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one GPU: the flat catalog sweeps
-and the ROM session paths of the 1994+ and the 1993 families
-(dcsexplorer_tpu_torch) end to end, through their hand-written kernels.
+and the ROM session paths of the 1994+ and the 1993 families, and the
+on-device 1994+ encoder (dcsexplorer_tpu_torch) end to end, through their
+hand-written kernels.
 
     python3 chip_smoke.py
 
@@ -81,8 +82,26 @@ non-zero):
      beside its span); the batch's device time,
      serve() x realtime over 8 batches with every gap and latency as in
      phase 9, the native trace, and the peak device memory of one batch
-Then one JSON line of per-kernel results (launches: over all four paths,
-each path's own printed in phases 4, 7, 10 and 11), and last the
+ 13. the on-device 1994+ encoder at bench.py's enc94_dev width (64 files
+     of 2.0 s, bench.py's _enc_jobs, copied as enc_jobs; 4 chunks of 16,
+     Fmax 272, slots (0,0), (1,0), (1,3)): encode_files_device once with
+     the counters at 0 (encode94_analyze, encode94_decide and
+     encode94_select must move); all 64 streams of encode_files_device and
+     of encode_batch equal the port's native host search
+     (core94.encode_stream94) on the host's own coefficients, byte for
+     byte; the three kernels against their plain versions at the first
+     chunk's shapes, under the default params and under params that
+     exercise the wrap refinement, timed beside their bounds as in phase 3
+     (the decisions' operations counted from this run's candidates over
+     distinct pre-adjustment columns; the analysis's as the four int8-plane
+     products that int8 tensor cores run at 1,979 TOP/s, exactly), and
+     encode94_analyze beside a float64 torch.matmul of the same product
+     (the library yardstick); x realtime of encode_files_device (128 s of
+     audio over the wall time, after one warm-up), with each chunk's host
+     prep, upload, device time, fetch and emit, and the peak device memory
+     of one chunk
+Then one JSON line of per-kernel results (launches: over all five paths,
+each path's own printed in phases 4, 7, 10, 11 and 13), and last the
 {"ok": true, ...} line.
 There is no CPU path: without a CUDA device the script exits 1.
 """
@@ -104,9 +123,11 @@ SESSION93A_ZIP = os.path.join(HERE, "dcsexplorer_tpu_torch", "data",
 SESSIONS, SESSION_FRAMES, VOICES, SEG_E = 320, 1000, 6, 32   # bench.py session6
 COPIES93 = 72                  # x 2 streams: bench.py's dec93b and dec93a_t1
 REF_FRAMES = 250               # frames held against the scalar decoder
+ENC_FILES = 64                 # bench.py's enc94_dev: 64 files of 2.0 s
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12      # H100 SXM: 64 INT32 lanes/SM, 132 SMs, 1.98 GHz,
                                # a multiply-add counted as two
+INT8_TC_OPS_PER_S = 1.979e15   # H100 SXM int8 tensor cores (dense), likewise
 
 
 def _read(path):
@@ -156,11 +177,11 @@ def _max_abs_err(a, b):
     return int(((a.long() & 0xFFFF) - (b.long() & 0xFFFF)).abs().max())
 
 
-def _bound(n_bytes, n_ops):
+def _bound(n_bytes, n_ops, ops_per_s=INT32_OPS_PER_S):
     """(bound ms, what bounds it): the least time for these bytes and
-    integer operations on the card."""
+    integer operations (at ops_per_s) on the card."""
     by = n_bytes / HBM_BYTES_PER_S * 1e3
-    op = n_ops / INT32_OPS_PER_S * 1e3
+    op = n_ops / ops_per_s * 1e3
     return (by, "bytes") if by >= op else (op, "operations")
 
 
@@ -173,6 +194,26 @@ def session_events(b):
     vol = 0x40 + (b % 64)
     events.setdefault(0, []).extend([0x55, 0xAA, vol, vol ^ 0xFF])
     return events
+
+
+def enc_jobs(n_files, seconds=2.0):
+    """bench.py's encoder jobs (_enc_jobs): n_files of int16 PCM at
+    31,250 Hz, chords of four tones with AM and a noise floor, seed 7.
+    Returns (jobs, seconds of audio)."""
+    import numpy as np
+    rate = 31250
+    rng = np.random.default_rng(7)
+    t = np.arange(int(rate * seconds)) / rate
+    jobs = []
+    for k in range(n_files):
+        x = np.zeros_like(t)
+        for f0 in (220.0, 277.2, 329.6, 440.0):
+            x += 0.2 * np.sin(2 * np.pi * f0 * (1 + 0.01 * k) * t)
+        x *= 0.5 + 0.5 * np.sin(2 * np.pi * (1.3 + 0.1 * k) * t)
+        x += 0.01 * rng.standard_normal(t.size)
+        pcm = x / np.abs(x).max() * 0.8
+        jobs.append(((pcm * 32767).astype(np.int16), rate))
+    return jobs, n_files * seconds
 
 
 def _serve_timing(srv, n_batches, batch_audio_s):
@@ -214,6 +255,9 @@ def main():
         return 1
     import numpy as np
     from dcsexplorer_tpu_torch import native
+    from dcsexplorer_tpu_torch.encoder import core94 as c94
+    from dcsexplorer_tpu_torch.encoder import device94 as d94
+    from dcsexplorer_tpu_torch.encoder import encoder as enc
     from dcsexplorer_tpu_torch.models import catalogsweep as cs
     from dcsexplorer_tpu_torch.models import flatsweep as fs
     from dcsexplorer_tpu_torch.models import pipeline, romplay
@@ -313,13 +357,19 @@ def main():
         "session_mix94": ("session_mix94.cu",
                           "dcsexplorer_tpu/models/pipeline.py:308"),
         "transform94_pcm_carry": ("transform94_pcm.cu",
-                                  "dcsexplorer_tpu/ops/transform.py:352")}
+                                  "dcsexplorer_tpu/ops/transform.py:352"),
+        "encode94_analyze": ("encode94_analyze.cu",
+                             "dcsexplorer_tpu/encoder/device94.py:354"),
+        "encode94_decide": ("encode94_decide.cu",
+                            "dcsexplorer_tpu/encoder/device94.py:114"),
+        "encode94_select": ("encode94_select.cu",
+                            "dcsexplorer_tpu/encoder/device94.py:155")}
 
     def check(name, plain_fn, kern_fn, reps_plain, reps_kern, n_bytes, n_ops,
-              phase=3, shape=None):
-        """Kernel against plain, both timed, beside the bound.  A check
-        labelled with a ``shape`` is printed only: the kernels line keeps
-        each kernel's check without one."""
+              phase=3, shape=None, ops_per_s=INT32_OPS_PER_S):
+        """Kernel against plain, both timed, beside the bound (n_ops at
+        ops_per_s).  A check labelled with a ``shape`` is printed only: the
+        kernels line keeps each kernel's check without one."""
         want = plain_fn()
         got = kern_fn()
         torch.cuda.synchronize()
@@ -332,12 +382,13 @@ def main():
                                  f"{err})")
         plain_ms = _time_ms(plain_fn, reps_plain, torch)
         ms = _device_ms(kern_fn, reps_kern, torch)
-        bound_ms, bound_by = _bound(n_bytes, n_ops)
+        bound_ms, bound_by = _bound(n_bytes, n_ops, ops_per_s)
         times[label] = ms
         print(f"phase {phase} {label}: bit-exact, kernel {ms:.4f} ms, "
               f"plain {plain_ms:.4f} ms, bound {bound_ms:.4f} ms "
               f"({bound_by}; {n_bytes / 1e6:.1f} MB, {n_ops / 1e9:.3f} G "
-              f"int ops) = {100 * bound_ms / ms:.1f}% of the bound")
+              f"int ops at {ops_per_s / 1e12:.1f} TOP/s) = "
+              f"{100 * bound_ms / ms:.1f}% of the bound")
         if shape is not None:
             return want
         results[name] = dict(
@@ -1112,6 +1163,221 @@ def main():
           f"(min {min(trace93):.2f}, max {max(trace93):.2f}); peak memory of "
           f"one batch {peak93 / 2**30:.3f} GiB ({(peak93 - base) / 2**30:.3f}"
           f" GiB above the resident bank and inputs); E {E93}")
+
+    # 13. the on-device 1994+ encoder at bench.py's enc94_dev width
+    jobs, enc_audio_s = enc_jobs(ENC_FILES)
+    params = enc.CompressionParams()
+    slots = d94._select_formats(params)
+    host_ci = [enc.analyze_frames_canonical(enc.frames_from_pcm_raw(
+        enc.pcm_to_int16(p, r))) for p, r in jobs]
+    t0 = time.perf_counter()
+    want_streams = [c94.encode_stream94(ci, params) for ci in host_ci]
+    native_s = time.perf_counter() - t0
+    # the main path once, from the counters at 0
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    got_files = enc.encode_files_device(jobs, params)
+    first_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    e_launches = dict(kernels.LAUNCHES)
+    on_enc_path = ("encode94_analyze", "encode94_decide", "encode94_select")
+    if not all(e_launches[k] > 0 for k in on_enc_path):
+        raise AssertionError(f"a kernel of the encoder did not launch: "
+                             f"{e_launches}")
+    if [s for s, _ in got_files] != want_streams or \
+            [nf for _, nf in got_files] != [c.shape[0] for c in host_ci]:
+        bad = [i for i, (s, _) in enumerate(got_files)
+               if s != want_streams[i]]
+        raise AssertionError(f"encode_files_device != the native host "
+                             f"search on streams {bad}")
+    got_batch = d94.encode_batch(host_ci, params, device=dev)
+    if got_batch != want_streams:
+        raise AssertionError("encode_batch != the native host search")
+    print(f"phase 13 encoder: {ENC_FILES} files of 2.0 s at 31,250 Hz "
+          f"({enc_audio_s:.1f} s audio, {host_ci[0].shape[0]} frames each, "
+          f"slots {slots}); all {ENC_FILES} streams of encode_files_device "
+          f"and of encode_batch byte-identical with the port's native host "
+          f"search ({native_s:.3f} s for {ENC_FILES} on one host thread); "
+          f"first call "
+          f"{first_s:.3f} s; launches {dict((k, e_launches[k]) for k in on_enc_path)}")
+
+    # each kernel against its plain version at the first chunk's shapes
+    encm = d94._encoder(slots, dev)
+    etabs = dict(encm.named_buffers())
+    fq = etabs["fq"]
+
+    def chunk_inputs(prm):
+        cis, _, pcm_np, nf_np, arrs = d94.prepare_chunk(jobs[:16], prm,
+                                                        slots)
+        t = {k: torch.tensor(np.asarray(v), device=dev)
+             for k, v in arrs.items() if k != "sil_max"}
+        return (torch.tensor(pcm_np, device=dev),
+                torch.tensor(nf_np, device=dev), arrs["sil_max"], t)
+
+    pcm_d, nf_d, sil_max, ta = chunk_inputs(params)
+    B, L = pcm_d.shape
+    Fm = (L - 240) // 240
+    K = len(slots)
+    # analysis: each PCM sample and matrix entry read once, ci written once;
+    # the product is exact on int8 tensor cores as four int8-plane products
+    # (the JAX reference's form), each a multiply-add of 256 x 255 a frame
+    # counted as two operations
+    check("encode94_analyze", lambda: d94.analyze94_plain(pcm_d, fq),
+          lambda: kernels.encode94_analyze(pcm_d, fq), 3, 20,
+          B * L * 2 + fq.numel() * 2 + B * Fm * 255 * 4,
+          4 * 2 * B * Fm * 256 * 255, phase=13, ops_per_s=INT8_TC_OPS_PER_S)
+    head = pcm_d[:, :Fm * 240].reshape(B, Fm, 240)
+    tail = pcm_d[:, 240:240 + Fm * 240].reshape(B, Fm, 240)[:, :, :16]
+    frames64 = torch.cat([head, tail], 2).double()
+    fq64 = fq.double()
+
+    def library_analyze():
+        p = torch.matmul(frames64, fq64)
+        return torch.floor((p + 2.0 ** 20) * 2.0 ** -21).clamp(
+            -(1 << 20), 1 << 20).int()
+
+    lib_ci = library_analyze()
+    ci_d = kernels.encode94_analyze(pcm_d, fq)
+    if not torch.equal(lib_ci, ci_d):
+        raise AssertionError("float64 torch.matmul analysis != the kernel")
+    library_ms = _device_ms(library_analyze, 20, torch)
+    results["encode94_analyze"]["library_ms"] = library_ms
+    print(f"phase 13 encode94_analyze library yardstick (float64 "
+          f"torch.matmul + rounding, equal to the kernel): {library_ms:.4f} "
+          f"ms against the kernel's {times['encode94_analyze']:.4f}")
+
+    def decide_work(ci, ta):
+        """(operations) the decisions need on these inputs: a min and a
+        max a position; two compares a (code, column) fit test; ~16 a
+        position for each candidate's error sum (rdiv's five, the wrap's
+        six, clamp, square, cap, sum).  Only distinct pre-adjustment
+        columns count: a column whose adjustment equals the previous
+        column's (a type-0 slot, bands past 2) has the same result."""
+        w, sf, amin, amax = d94.derive_luts(ta["hdr_scale"], ta["keep"],
+                                            etabs)
+        cpad, lane = d94._pad_grid(ci)
+        mn = torch.where(lane, cpad, d94.BIG).amin(-1)
+        mx = torch.where(lane, cpad, -d94.BIG).amax(-1)
+        peff = etabs["peff_tab"]                           # [K,16,P]
+        distinct = torch.ones_like(peff, dtype=torch.bool)
+        distinct[:, :, 1:] = etabs["is1"][:, None, None] & (
+            peff[:, :, 1:] != peff[:, :, :-1])
+        n_band = torch.tensor(c94.BAND_SIZES, device=dev)
+        fit_ops = 2 * 15 * int(distinct.sum()) * ci.shape[0] * ci.shape[1]
+        cand_ops = 0
+        for k in range(K):
+            fit = ((mn[:, :, :, None, None] >= amin[:, k, None, :, 1:])
+                   & (mx[:, :, :, None, None] <= amax[:, k, None, :, 1:]))
+            best = torch.where(fit, torch.arange(1, 16, device=dev)[:, None],
+                               15).amin(3)                 # [B,F,16,P]
+            wc = w[:, k, :, 1:7].long()                    # [B,16,6,P]
+            sfc = sf[:, k, :, 1:7].long()
+            valid = (wc >= 1) & ((1 << wc.clamp(min=1)) * sfc - sfc // 2
+                                 <= ta["dlim"].long()[None, :, None, None]
+                                 - 1) & ta["keep"][:, :, None, None]
+            c = torch.arange(1, 7, device=dev)[:, None]
+            n_c = (valid[:, None] & (c < best[:, :, :, None, :])).sum(3)
+            cand_ops += 16 * int((n_c * distinct[k] * n_band[:, None]).sum())
+        return 2 * ci.numel() + fit_ops + cand_ops
+
+    def check_encoder(prm_label, ci, nf, sil, ta):
+        args = (ci, sil, ta["keep"], ta["thr"], ta["dlim"], ta["cape"],
+                ta["hdr_scale"])
+        # decide: ci and the header codes read once, two decision bytes a
+        # (slot, frame, band, column) and the silent flags written
+        dec = check("encode94_decide",
+                    lambda: d94.decide94_plain(*args, etabs),
+                    lambda: kernels.encode94_decide(*args, etabs), 1, 20,
+                    ci.numel() * 4 + B * K * 16 + 2 * B * K * Fm * 80
+                    + B * Fm * 16, decide_work(ci, ta), phase=13,
+                    shape=prm_label)
+        sel = (ci, *dec, nf, ta["keep"], ta["hdr_scale"], ta["wanted"],
+               etabs)
+        # select: ci, the decisions and the flags read once, the packed
+        # rows written; ~22 integer operations a (slot, position) for the
+        # codeword length and the pairing, ~10 a (slot, band) for the scan
+        # step and the delta code
+        check("encode94_select", lambda: d94.select94_plain(*sel),
+              lambda: kernels.encode94_select(*sel), 1, 20,
+              ci.numel() * 4 + 2 * B * K * Fm * 80 + B * Fm * 16
+              + B * (4 * K + 1 + 32 * Fm), B * K * Fm * (255 * 22 + 16 * 10),
+              phase=13, shape=prm_label)
+
+    check_encoder(None, ci_d, nf_d, sil_max, ta)
+    wrap = enc.CompressionParams(target_bit_rate=48000,
+                                 maximum_quantization_error=40 / 32768,
+                                 minimum_dynamic_range=60 / 32768)
+    pcm_w, nf_w, sil_w, ta_w = chunk_inputs(wrap)
+    check_encoder("wrap-refinement params", kernels.encode94_analyze(
+        pcm_w, fq), nf_w, sil_w, ta_w)
+    got_w = enc.encode_files_device(jobs[:16], wrap)
+    if [s for s, _ in got_w] != [c94.encode_stream94(ci, wrap)
+                                 for ci in host_ci[:16]]:
+        raise AssertionError("wrap-refinement params: streams != native")
+
+    # x realtime end to end (after the warm-up above), and its parts
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        enc.encode_files_device(jobs, params)
+        walls.append(time.perf_counter() - t0)
+    ranges = [(i, min(i + 16, ENC_FILES)) for i in range(0, ENC_FILES, 16)]
+    prep_s, setup_s, up_s, fetch_s, emit_s, dev_ms = [], [], [], [], [], []
+    for lo, hi in ranges:
+        t0 = time.perf_counter()
+        cis, setups, pcm_np, nf_np, arrs = d94.prepare_chunk(jobs[lo:hi],
+                                                             params, slots)
+        prep_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        d94.setup_compact(cis, params, slots)
+        setup_s.append(time.perf_counter() - t0)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        d = d94._to_device(dict(x=pcm_np, nf=nf_np, keep=arrs["keep"],
+                                thr=arrs["thr"], dlim=arrs["dlim"],
+                                cape=arrs["cape"],
+                                hdr_scale=arrs["hdr_scale"],
+                                wanted=arrs["wanted"]), dev)
+        torch.cuda.synchronize()
+        up_s.append(time.perf_counter() - t0)
+
+        def forward(d=d, sm=arrs["sil_max"]):
+            return encm(d["x"], d["nf"], sm, d["keep"], d["thr"], d["dlim"],
+                        d["cape"], d["hdr_scale"], d["wanted"])
+
+        dev_ms.append(_device_ms(forward, 5, torch))
+        packed = forward()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed)
+        buf = host.numpy()
+        fetch_s.append(time.perf_counter() - t0)
+        t0 = time.perf_counter()
+        d94.emit_chunk(buf, cis, setups, slots)
+        emit_s.append(time.perf_counter() - t0)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    forward()
+    torch.cuda.synchronize()
+    peak_enc = torch.cuda.max_memory_allocated(dev)
+    ms = lambda v: ", ".join(f"{1e3 * x:.3f}" for x in v)
+    mean_wall = sum(walls) / len(walls)
+    print(f"phase 13 encode_files_device: {enc_audio_s / mean_wall:.1f}x "
+          f"realtime (wall {ms(walls)} ms over 3 runs after one warm-up; "
+          f"min {enc_audio_s / min(walls):.1f}x); per chunk of 16, serial: "
+          f"host prep {ms(prep_s)} ms (of which the 16 setups, timed "
+          f"again alone: {ms(setup_s)} ms), upload {ms(up_s)} ms, device "
+          + ", ".join(f"{v:.4f}" for v in dev_ms) + f" ms, fetch "
+          f"{ms(fetch_s)} ms, emit {ms(emit_s)} ms; the device share of "
+          f"the serial sum {100 * sum(dev_ms) / 1e3 / (sum(prep_s) + sum(up_s) + sum(dev_ms) / 1e3 + sum(fetch_s) + sum(emit_s)):.2f}%; "
+          f"peak memory of one chunk {peak_enc / 2**20:.2f} MiB "
+          f"({(peak_enc - base) / 2**20:.2f} MiB above its inputs)")
+    for k in on_enc_path:
+        results[k]["launches"] = e_launches[k]
 
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {

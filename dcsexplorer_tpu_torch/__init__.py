@@ -16,6 +16,10 @@ code it needs is its own copy, in the reference's layout.
                 ``ops/kernels.py``).
 - ``models``  — the flat 1994+ catalog sweep (host ``FlatSweep`` packing and
                 the ``FlatPipeline`` device module).
+- ``encoder`` — the 1994+ encoder: the host's analysis and per-stream setup,
+                and the format search on the device (``device94``:
+                ``DeviceEncoder94``, ``encode_batch``,
+                ``encode_files_device``).
 
 Values follow the reference's u16-in-int32 storage convention throughout.
 """

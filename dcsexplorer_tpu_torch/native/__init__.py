@@ -1,9 +1,11 @@
-"""Native host runtime of the port: the C++ stream indexer and VM tracer.
+"""Native host runtime of the port: the C++ stream indexer, VM tracer and
+1994+ encoder core.
 
 At first use, g++ builds ``build/torch_native/libdcs_host.so`` from
 ``src/dcs_native.cpp`` (the stream indexers of the 1994+ and the 1993
-families) and ``src/tracer.cpp``
-(the runtime VM tracer), with a table header that ``gen_tables`` writes from
+families), ``src/tracer.cpp`` (the runtime VM tracer) and
+``src/encoder94.cpp`` (the 1994+ format search and symbol emission),
+with a table header that ``gen_tables`` writes from
 the port's own ``format/tables.py``.  It rebuilds when a source is newer
 than the library.  The flags are plain ``-O3`` without ``-march``, so one
 build runs on any x86-64 host.  A failed build raises: there is no Python
@@ -14,16 +16,18 @@ import ctypes as C
 import os
 import subprocess
 
+import numpy as np
+
 from . import gen_tables
 
 _HERE = os.path.dirname(os.path.abspath(__file__))
 _REPO = os.path.dirname(os.path.dirname(_HERE))
 BUILD_DIR = os.path.join(_REPO, "build", "torch_native")
 LIB_PATH = os.path.join(BUILD_DIR, "libdcs_host.so")
-SOURCES = ("dcs_native.cpp", "tracer.cpp")
+SOURCES = ("dcs_native.cpp", "tracer.cpp", "encoder94.cpp")
 GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
 
-_P, _I = C.c_void_p, C.c_int
+_P, _I, _LL = C.c_void_p, C.c_int, C.c_longlong
 _SIGNATURES = {
     "dcs94_frame_count": (C.c_int, [C.c_char_p, _I, _I]),
     "dcs94_decode_dense": (C.c_int, [C.c_char_p, _I, _I] + [_P] * 10),
@@ -42,6 +46,17 @@ _SIGNATURES = {
                          + [_P] * 5),
     "dcstr_trace_segs_batch": (C.c_int, [_P, _I, _I, _P, _P, _P, _P, _P, _I,
                                          _I, _I] + [_P] * 5),
+    # ci, F, NF, PMAX, w_lut, sf_lut, amin, amax, pip, dep, n_p, thr,
+    # bands_keep, sil_max, band_sizes, delta_lo, delta_len, delta_val,
+    # delta_bits, cb_code, cb_bits, tz_code, tz_bits, out, out_cap, winner
+    "dcs94_encode_search": (_LL, [_P, _I, _I, _I] + [_P] * 7
+                            + [_P, _I, _I, _P, _I, _I] + [_P] * 6
+                            + [_P, _LL, _P]),
+    # ci, F, PMAX, w_lut, sf_lut, codes, pidx, bands_keep, band_sizes,
+    # delta_lo, delta_len, delta_val, delta_bits, cb_code, cb_bits,
+    # tz_code, tz_bits, out, out_cap
+    "dcs94_emit_with_codes": (_LL, [_P, _I, _I] + [_P] * 4
+                              + [_I, _P, _I, _I] + [_P] * 6 + [_P, _LL]),
 }
 
 _lib = None
@@ -78,3 +93,76 @@ def get_lib():
             fn.argtypes = argtypes
         _lib = lib
     return _lib
+
+
+def _codec_arrays():
+    """The 1994+ encoder's inverted code tables, as the C entries take
+    them (int32, contiguous)."""
+    from ..encoder import core94 as c94
+    return [np.ascontiguousarray(a, dtype=np.int32)
+            for a in (c94.BAND_SIZES, c94.DELTA_VAL, c94.DELTA_BITS,
+                      c94.CB_CODE, c94.CB_BITS, c94.TZ_CODE, c94.TZ_BITS)]
+
+
+def encode94_search(ci, formats, bands_keep, thr, sil_max):
+    """The native stream-format search (src/encoder94.cpp): the whole
+    decision pipeline for every FormatSetup candidate, keeping the
+    smallest.  ci [F, 255] int32; formats: list of core94.FormatSetup;
+    thr [16].  Returns (winner index, body bytes); raises on failure."""
+    from ..encoder import core94 as c94
+    ci = np.ascontiguousarray(ci, dtype=np.int32)
+    F = ci.shape[0]
+
+    def stack(key):
+        return np.ascontiguousarray(
+            np.stack([getattr(fs, key) for fs in formats]), dtype=np.int32)
+
+    luts = [stack(k) for k in ("w_lut", "sf_lut", "amin_lut", "amax_lut",
+                               "pidx_of_prev")]
+    dep = np.asarray([fs.fmt_type == 1 for fs in formats], dtype=np.int32)
+    n_p = np.asarray([fs.n_p for fs in formats], dtype=np.int32)
+    thr = np.ascontiguousarray(thr, dtype=np.int32)
+    bsz, dval, dbits, cbc, cbb, tzc, tzb = _codec_arrays()
+    cap = F * 600 + 64
+    out = np.zeros(cap, dtype=np.uint8)
+    winner = np.zeros(1, dtype=np.int32)
+
+    def p(a):
+        return a.ctypes.data_as(C.c_void_p)
+
+    n = get_lib().dcs94_encode_search(
+        p(ci), F, len(formats), int(c94.PMAX), *[p(a) for a in luts],
+        p(dep), p(n_p), p(thr), int(bands_keep), int(sil_max), p(bsz),
+        int(c94.DELTA_LO), int(dval.size), p(dval), p(dbits), p(cbc),
+        p(cbb), p(tzc), p(tzb), p(out), cap, p(winner))
+    if n < 0:
+        raise RuntimeError(f"native encode failed: {n}")
+    return int(winner[0]), out[:n].tobytes()
+
+
+def emit94_with_codes(ci, fs, codes, pidx, bands_keep):
+    """Emit and pack one stream of the winning format from its per-frame
+    band-type codes (the device encoder's result, encoder/device94.py).
+    ci [F, 255] int32; fs: core94.FormatSetup; codes/pidx [F, 16].
+    Returns the body bytes; raises on failure."""
+    from ..encoder import core94 as c94
+    ci = np.ascontiguousarray(ci, dtype=np.int32)
+    F = ci.shape[0]
+    codes = np.ascontiguousarray(codes, dtype=np.int8)
+    pidx = np.ascontiguousarray(pidx, dtype=np.int8)
+    wl = np.ascontiguousarray(fs.w_lut, dtype=np.int32)
+    sl = np.ascontiguousarray(fs.sf_lut, dtype=np.int32)
+    bsz, dval, dbits, cbc, cbb, tzc, tzb = _codec_arrays()
+    cap = F * 600 + 64
+    out = np.zeros(cap, dtype=np.uint8)
+
+    def p(a):
+        return a.ctypes.data_as(C.c_void_p)
+
+    n = get_lib().dcs94_emit_with_codes(
+        p(ci), F, int(c94.PMAX), p(wl), p(sl), p(codes), p(pidx),
+        int(bands_keep), p(bsz), int(c94.DELTA_LO), int(dval.size),
+        p(dval), p(dbits), p(cbc), p(cbb), p(tzc), p(tzb), p(out), cap)
+    if n < 0:
+        raise RuntimeError(f"native emit failed: {n}")
+    return out[:n].tobytes()

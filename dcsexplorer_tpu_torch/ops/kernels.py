@@ -23,13 +23,15 @@ import subprocess
 
 import torch
 
+
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO = os.path.dirname(_PKG)
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("decode94_fb.cu", "decode94_bank.cu", "dequant_mix.cu",
            "segments94.cu", "session_mix94.cu", "transform94.cu",
            "transform94_pcm.cu", "decode93_fb.cu", "transform93_pcm.cu",
-           "decode93_pcm.cu")
+           "decode93_pcm.cu", "encode94_analyze.cu", "encode94_decide.cu",
+           "encode94_select.cu")
 HEADERS = ("dcs_fixmath.cuh", "decode94_walk.cuh")
 LIB_PATH = os.path.join(_REPO, "build", "torch_kernels", "libdcs_torch.so")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -43,13 +45,16 @@ LAUNCHES = {"decode94_fb": 0, "decode94_bank": 0, "dequant_mix": 0,
             "transform94_pcm": 0, "transform94_pcm_carry": 0,
             "decode93_fb": 0, "transform93_pcm": 0,
             "transform93_pcm_carry": 0, "decode93_pcm": 0,
-            "decode93_pcm_carry": 0}
+            "decode93_pcm_carry": 0, "encode94_analyze": 0,
+            "encode94_decide": 0, "encode94_select": 0}
 
 # frames per block of csrc/transform94_pcm.cu, transform93_pcm.cu and
 # decode93_pcm.cu (their kTile): a block transforms (and decodes) the frame
 # before its tile again for the overlap carry
 TRANSFORM94_PCM_TILE = TRANSFORM93_PCM_TILE = 64
 DECODE93_PCM_TILE = 63          # with the halo, 8 frames for each of 8 warps
+# format slots of the encoder kernels (at most (0,0), (1,0), (1,3))
+ENCODE94_MAX_SLOTS = 3
 
 _lib = None
 
@@ -92,6 +97,18 @@ _SIGNATURES = {
                          *[_P] * 4, _P, _P, _I, _P, _I, _I, _I, _P],
     # mismatch count (uint64 on the card), stream
     "dcs_normalize93_check": [_P, _P],
+    # pcm, fq, ci, n_streams, fmax, stream
+    "dcs_encode94_analyze": [_P, _P, _P, _I, _I, _P],
+    # ci, hdr_scale, keep, tables (_check_encoder_tables' first five), thr,
+    # dlim, cape,
+    # sil_max, out15, out14, silent, n_streams, K, fmax, stream
+    "dcs_encode94_decide": [_P, _P, _P, *[_P] * 5, _P, _P, _P, _I, _P, _P,
+                            _P, _I, _I, _I, _P],
+    # ci, out15, out14, silent, nf, keep, hdr_scale, wanted, tables
+    # (_check_encoder_tables' ten), delta_len, codes, pidx, nbits, done,
+    # packed, n_streams, K, fmax, stream
+    "dcs_encode94_select": [*[_P] * 8, *[_P] * 10, _I, *[_P] * 5, _I, _I, _I,
+                            _P],
 }
 
 
@@ -559,3 +576,105 @@ def normalize93_check(device):
     if err != 0:
         raise RuntimeError(f"normalize93_check: CUDA error {err} at launch")
     return int(bad.item())
+
+
+def _check_encoder_tables(tabs, K, dev, n):
+    """The first n of the encoder's tables, in the order of the C arguments
+    (decide takes five, select all ten); returns their pointers."""
+    spec = (("w_tab", torch.int32, (K, 16, 16)),
+            ("xa_tab", torch.int32, (K, 16, 16)),
+            ("peff_tab", torch.int32, (K, 16, 5)),
+            ("is1", torch.bool, (K,)), ("scale_mant", torch.int32, (4,)),
+            ("pip", torch.int32, (K, 16)), ("dep", torch.bool, (K, 16)),
+            ("cb_bits", torch.int32, (7, 64)), ("tz_bits", torch.int32, (7,)),
+            ("delta_bits", torch.int32, (tabs["delta_bits"].numel(),)))
+    for name, dtype, shape in spec[:n]:
+        _check(name, tabs[name], dtype, shape, dev)
+    return [tabs[name].data_ptr() for name, _, _ in spec[:n]]
+
+
+def _check_batch(ci, hdr_scale, keep):
+    """(B, Fmax, K) of an encoder batch: ci [B, Fmax, 255] int32,
+    hdr_scale [B, K, 16] uint8, keep [B, 16] bool."""
+    B, F = ci.shape[:2]
+    K = hdr_scale.shape[1]
+    dev = ci.device
+    _check("ci", ci, torch.int32, (B, F, 255))
+    _check("hdr_scale", hdr_scale, torch.uint8, (B, K, 16), dev)
+    _check("keep", keep, torch.bool, (B, 16), dev)
+    if not 1 <= K <= ENCODE94_MAX_SLOTS:
+        raise ValueError(f"{K} format slots; expected 1..3")
+    if not (1 <= B < 65536 and F >= 1):
+        raise ValueError(f"{B} streams of {F} frames")
+    return B, F, K
+
+
+def encode94_analyze(pcm, fq):
+    """int16 PCM [B, Fmax*240 + 240] -> coefficients [B, Fmax, 255] int32
+    on the card (csrc/encode94_analyze.cu); see
+    encoder.device94.analyze94_plain for the contract."""
+    B, L = pcm.shape
+    F = (L - 240) // 240
+    dev = pcm.device
+    _check("pcm", pcm, torch.int16, (B, F * 240 + 240))
+    _check("fq", fq, torch.int16, (256, 255), dev)
+    if not (1 <= B < 65536 and F >= 1):
+        raise ValueError(f"{B} streams of {F} frames")
+    ci = torch.empty((B, F, 255), dtype=torch.int32, device=dev)
+    _launch("encode94_analyze", "dcs_encode94_analyze", dev, pcm.data_ptr(),
+            fq.data_ptr(), ci.data_ptr(), B, F)
+    return ci
+
+
+def encode94_decide(ci, sil_max, keep, thr, dlim, cape, hdr_scale, tabs):
+    """The encoder's decision tables on the card (csrc/encode94_decide.cu):
+    (out15, out14 [B, K, Fmax, 16, 5] uint8, silent [B, Fmax, 16] bool); see
+    encoder.device94.decide94_plain for the contract."""
+    B, F, K = _check_batch(ci, hdr_scale, keep)
+    dev = ci.device
+    for name, t in (("thr", thr), ("dlim", dlim), ("cape", cape)):
+        _check(name, t, torch.int32, (16,), dev)
+    tables = _check_encoder_tables(tabs, K, dev, 5)
+    out15 = torch.empty((B, K, F, 16, 5), dtype=torch.uint8, device=dev)
+    out14 = torch.empty_like(out15)
+    silent = torch.empty((B, F, 16), dtype=torch.bool, device=dev)
+    _launch("encode94_decide", "dcs_encode94_decide", dev, ci.data_ptr(),
+            hdr_scale.data_ptr(), keep.data_ptr(), *tables,
+            thr.data_ptr(), dlim.data_ptr(), cape.data_ptr(), int(sil_max),
+            out15.data_ptr(), out14.data_ptr(), silent.data_ptr(), B, K, F)
+    return out15, out14, silent
+
+
+def encode94_select(ci, out15, out14, silent, nf, keep, hdr_scale, wanted,
+                    tabs):
+    """The encoder's scan, sizes, winner and packed rows on the card
+    (csrc/encode94_select.cu: two kernels from one entry) -> uint8
+    [B, 4K + 1 + 32 Fmax]; see encoder.device94.select94_plain for the
+    contract.  Fmax is a multiple of 16 (the frame bucket)."""
+    B, F, K = _check_batch(ci, hdr_scale, keep)
+    dev = ci.device
+    if F % 16:
+        raise ValueError(f"{F} frames: the kernel takes multiples of 16")
+    _check("out15", out15, torch.uint8, (B, K, F, 16, 5), dev)
+    _check("out14", out14, torch.uint8, (B, K, F, 16, 5), dev)
+    _check("silent", silent, torch.bool, (B, F, 16), dev)
+    _check("nf", nf, torch.int32, (B,), dev)
+    _check("wanted", wanted, torch.bool, (B, K), dev)
+    tables = _check_encoder_tables(tabs, K, dev, 10)
+    # the scan loads 4-byte words of the decisions
+    for name, t in (("out15", out15), ("out14", out14), ("silent", silent)):
+        if t.data_ptr() % 4:
+            raise ValueError(f"{name}: not 4-byte aligned")
+    codes = torch.empty((B, K, F, 16), dtype=torch.uint8, device=dev)
+    pidx = torch.empty_like(codes)
+    nbits = torch.empty((B, K), dtype=torch.int32, device=dev)
+    done = torch.empty((B,), dtype=torch.int32, device=dev)
+    packed = torch.empty((B, 4 * K + 1 + 32 * F), dtype=torch.uint8,
+                         device=dev)
+    _launch("encode94_select", "dcs_encode94_select", dev, ci.data_ptr(),
+            out15.data_ptr(), out14.data_ptr(), silent.data_ptr(),
+            nf.data_ptr(), keep.data_ptr(), hdr_scale.data_ptr(),
+            wanted.data_ptr(), *tables, tabs["delta_bits"].numel(), codes.data_ptr(),
+            pidx.data_ptr(), nbits.data_ptr(), done.data_ptr(),
+            packed.data_ptr(), B, K, F)
+    return packed

@@ -27,7 +27,13 @@ without a carried state, the fused decode93_pcm kernel on the same inputs
 plus every band kind and width at random, frame counts around its tile and
 streams that cross it (so the halo frame is decoded), the closed-form
 normalize of its square root on all 2^32 inputs, the flat sweep and a
-served batch on the card against the CPU.  Every comparison is bit for
+served batch on the card against the CPU; for the 1994+ encoder, the
+three encoder kernels on random PCM and the adversarial full-scale set at
+frame counts around the 16-frame bucket and the kernels' tiles, random
+header scale codes over 0..255 with every bands_keep from 1 to 16, one and
+three format slots with every wanted pattern, a band that wants code 15
+right after a silent frame, and a batch of 64 streams against the CPU and
+the native host search.  Every comparison is bit for
 bit.  chip_smoke.py covers
 the real catalogs and the full-width session6 and session93a batches.
 """
@@ -39,6 +45,9 @@ import numpy as np
 import pytest
 import torch
 
+from dcsexplorer_tpu_torch.encoder import core94 as c94
+from dcsexplorer_tpu_torch.encoder import device94 as d94
+from dcsexplorer_tpu_torch.encoder import encoder as enc
 from dcsexplorer_tpu_torch.models import catalogsweep as cs
 from dcsexplorer_tpu_torch.models import flatsweep as fs
 from dcsexplorer_tpu_torch.models import pipeline, romplay
@@ -248,7 +257,9 @@ def test_sweep_on_the_card_equals_the_cpu_sweep(dev):
                         "transform94_planar": 0, "transform94_pcm": 1,
                         "transform94_pcm_carry": 0, "decode93_fb": 0,
                         "transform93_pcm": 0, "transform93_pcm_carry": 0,
-                        "decode93_pcm": 0, "decode93_pcm_carry": 0}
+                        "decode93_pcm": 0, "decode93_pcm_carry": 0,
+                        "encode94_analyze": 0, "encode94_decide": 0,
+                        "encode94_select": 0}
 
 
 # -- the session path --------------------------------------------------------
@@ -532,7 +543,9 @@ def test_session_server_on_the_card_equals_the_cpu_server(dev):
                         "transform94_planar": 0, "transform94_pcm": 3,
                         "transform94_pcm_carry": 0, "decode93_fb": 0,
                         "transform93_pcm": 0, "transform93_pcm_carry": 0,
-                        "decode93_pcm": 0, "decode93_pcm_carry": 0}
+                        "decode93_pcm": 0, "decode93_pcm_carry": 0,
+                        "encode94_analyze": 0, "encode94_decide": 0,
+                        "encode94_select": 0}
 
 
 # -- the 1993 family -----------------------------------------------------------
@@ -889,3 +902,195 @@ def test_decode93_pcm_wrapper_refuses_bad_tensors(dev, tabs93):
     skewed = torch.zeros(2 * 16 + 1, dtype=torch.int32, device=dev)[1:]
     with pytest.raises(ValueError, match="aligned"):
         run(ov0=skewed.view(2, 16))
+
+
+
+# ----------------------------------------------------------------------
+# the 1994+ encoder
+
+ENC_SLOTS = {1: ((1, 3),), 3: ((0, 0), (1, 0), (1, 3))}
+
+
+def _adversarial_pcm(n):
+    """int16 rows that break plane decompositions of the analysis:
+    full-scale DC, alternating extremes, impulses, byte edges, random."""
+    rng = np.random.default_rng(11)
+    rows = [np.full(n, 32767), np.full(n, -32768), np.full(n, -1),
+            np.where(np.arange(n) % 2 == 0, 32767, -32768)]
+    imp = np.zeros(n, np.int64)
+    imp[::97] = 32767
+    imp[1::193] = -32768
+    rows.append(imp)
+    rows.append(rng.choice(np.asarray([-32768, -32767, -256, -255, -1, 0, 1,
+                                       255, 256, 32766, 32767]), size=n))
+    rows.append(rng.integers(-32768, 32768, size=n))
+    return np.stack(rows).astype(np.int16)
+
+
+@pytest.fixture(scope="module")
+def encoders(dev):
+    return {K: d94.DeviceEncoder94.for_slots(list(s), dev)
+            for K, s in ENC_SLOTS.items()}
+
+
+@pytest.mark.parametrize("fmax", [1, 15, 16, 17, 33, 272])
+def test_encode94_analyze_kernel_on_random_and_adversarial_pcm(dev, fmax):
+    fq = torch.tensor(enc.forward_matrix_q(), device=dev)
+    L = fmax * 240 + 240
+    rng = np.random.default_rng(fmax)
+    pcm = np.concatenate([_adversarial_pcm(L),
+                          rng.integers(-32768, 32768, size=(9, L)),
+                          rng.integers(-300, 300, size=(3, L))])
+    pcm = torch.tensor(pcm.astype(np.int16), device=dev)
+    got = kernels.encode94_analyze(pcm, fq)
+    torch.cuda.synchronize()
+    assert torch.equal(got, d94.analyze94_plain(pcm, fq))
+    # and the host's float64 evaluation of each row's frames
+    host = pcm.cpu().numpy()
+    for i in (0, 3, 6, 11):
+        frames = enc.frames_from_pcm_raw(host[i, :fmax * 240])
+        frames[-1, 240:] = host[i, fmax * 240:fmax * 240 + 16]
+        np.testing.assert_array_equal(got[i].cpu().numpy(),
+                                      enc.analyze_frames_canonical(frames))
+
+
+@pytest.mark.parametrize("matrix", ["min", "max", "random"])
+def test_encode94_analyze_kernel_on_extreme_matrices(dev, matrix):
+    """Any int16 matrix, -32768 entries included: a pair of products then
+    reaches 2^31, which the kernel's pair sums must carry exactly."""
+    rng = np.random.default_rng(12)
+    fq = {"min": np.full((256, 255), -32768),
+          "max": np.full((256, 255), 32767),
+          "random": rng.integers(-32768, 32768, size=(256, 255))}[matrix]
+    fq = torch.tensor(fq.astype(np.int16), device=dev)
+    fmax = 17
+    L = fmax * 240 + 240
+    pcm = np.concatenate([_adversarial_pcm(L),
+                          rng.integers(-32768, 32768, size=(4, L))])
+    pcm = torch.tensor(pcm.astype(np.int16), device=dev)
+    got = kernels.encode94_analyze(pcm, fq)
+    torch.cuda.synchronize()
+    assert torch.equal(got, d94.analyze94_plain(pcm, fq))
+
+
+def _encoder_inputs(dev, K, fmax, seed, maxerr):
+    """One stream per bands_keep 1..16, coefficients from random PCM of
+    three amplitudes with silent stretches, random header scale codes over
+    0..255, thresholds from a maximum quantization error of maxerr/32768."""
+    rng = np.random.default_rng(seed)
+    B = 16
+    amp = np.asarray([30000, 3000, 100] * 6)[:B, None]
+    pcm = (rng.standard_normal((B, fmax * 240 + 240)) * amp).clip(
+        -32768, 32767).astype(np.int16)
+    for i in range(0, B, 3):
+        pcm[i, : 240 * (fmax // 2)] = 5               # silent frames
+    fq = torch.tensor(enc.forward_matrix_q(), device=dev)
+    ci = kernels.encode94_analyze(torch.tensor(pcm, device=dev), fq)
+    params = enc.CompressionParams(
+        maximum_quantization_error=maxerr / 32768,
+        minimum_dynamic_range=maxerr / 32768)
+    _, arrs = d94.setup_compact([np.zeros((1, 255), np.int32)], params,
+                                ENC_SLOTS[K])
+    hdr = rng.integers(0, 256, size=(B, K, 16)).astype(np.uint8)
+    hdr[::2] %= 48                                    # realistic codes too
+    keep = np.arange(16)[None] < np.arange(1, B + 1)[:, None]
+    t = lambda a, dt=None: torch.tensor(np.asarray(a), device=dev, dtype=dt)
+    return dict(ci=ci, sil_max=arrs["sil_max"], keep=t(keep),
+                thr=t(arrs["thr"]), dlim=t(arrs["dlim"]),
+                cape=t(arrs["cape"]), hdr_scale=t(hdr))
+
+
+@pytest.mark.parametrize("K", [1, 3])
+@pytest.mark.parametrize("fmax", [16, 32, 48])
+@pytest.mark.parametrize("maxerr", [10, 40, 200])
+def test_encode94_decide_and_select_kernels(dev, encoders, K, fmax, maxerr):
+    tabs = dict(encoders[K].named_buffers())
+    x = _encoder_inputs(dev, K, fmax, seed=fmax * 7 + K + maxerr, maxerr=maxerr)
+    args = (x["ci"], x["sil_max"], x["keep"], x["thr"], x["dlim"],
+            x["cape"], x["hdr_scale"])
+    got = kernels.encode94_decide(*args, tabs)
+    torch.cuda.synchronize()
+    want = d94.decide94_plain(*args, tabs)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    B = x["ci"].shape[0]
+    rng = np.random.default_rng(fmax + K)
+    # frame counts around the bucket and every wanted pattern
+    nf = torch.tensor(np.clip(fmax - rng.integers(0, 17, size=B), 1, fmax)
+                      .astype(np.int32), device=dev)
+    for pattern in range(1 << K):
+        wanted = torch.tensor([[bool(pattern >> k & 1) for k in range(K)]]
+                              * B, device=dev)
+        sel = (x["ci"], *want, nf, x["keep"], x["hdr_scale"], wanted, tabs)
+        packed = kernels.encode94_select(*sel)
+        torch.cuda.synchronize()
+        assert torch.equal(packed, d94.select94_plain(*sel)), pattern
+
+
+def test_encode94_code_15_after_a_silent_frame_on_the_card(dev):
+    params = enc.CompressionParams(stream_format_type=0,
+                                   power_band_cutoff=1.0,
+                                   target_bit_rate=10_000_000)
+    rng = np.random.default_rng(1)
+    ci = rng.integers(-300, 300, size=(4, 255)).astype(np.int32)
+    s0 = int(c94.BAND_START[5])
+    ci[0, s0:s0 + 16] = 7
+    ci[1:3, s0:s0 + 16] = np.where(np.arange(16) % 2, 1 << 20, -(1 << 20))
+    (got,) = d94.encode_batch([ci], params, device=dev)
+    assert got == c94.encode_stream94(ci, params)
+    assert got == d94.encode_batch([ci], params, device="cpu")[0]
+
+
+def test_encode_batch_of_64_streams_on_the_card(dev):
+    rng = np.random.default_rng(9)
+    cis = [rng.integers(-(1 << 12), 1 << 12, size=(int(nf), 255))
+           .astype(np.int32) for nf in rng.integers(1, 80, size=64)]
+    for params in (enc.CompressionParams(),
+                   enc.CompressionParams(target_bit_rate=48000,
+                                         maximum_quantization_error=40 / 32768,
+                                         minimum_dynamic_range=60 / 32768)):
+        got = d94.encode_batch(cis, params, device=dev)
+        assert got == [c94.encode_stream94(ci, params) for ci in cis]
+        assert got == d94.encode_batch(cis, params, device="cpu")
+
+
+def test_encode_files_device_on_the_card(dev):
+    rng = np.random.default_rng(5)
+    t = np.arange(240 * 40) / 31250.0
+    music = np.clip(8000 * np.sin(2 * np.pi * 440 * t)
+                    + 200 * rng.standard_normal(t.size), -32768,
+                    32767).astype(np.int16)
+    jobs = [(music, 31250), (music[:240 * 7 + 3], 31250),
+            (_adversarial_pcm(240 * 9 + 17)[3], 31250)] * 7
+    got = d94.encode_jobs_pcm(jobs, enc.CompressionParams(), device=dev,
+                              chunk=8)
+    assert got == d94.encode_jobs_pcm(jobs, enc.CompressionParams(),
+                                      device="cpu", chunk=8)
+    assert got == enc.encode_files_device(jobs)
+
+
+def test_encoder_wrappers_refuse_bad_tensors(dev, encoders):
+    tabs = dict(encoders[3].named_buffers())
+    x = _encoder_inputs(dev, 3, 16, seed=1, maxerr=10)
+    args = [x["ci"], x["sil_max"], x["keep"], x["thr"], x["dlim"], x["cape"],
+            x["hdr_scale"]]
+    with pytest.raises(ValueError, match="CUDA"):
+        kernels.encode94_decide(x["ci"].cpu(), *args[1:], tabs)
+    with pytest.raises(TypeError):
+        kernels.encode94_decide(x["ci"].long(), *args[1:], tabs)
+    with pytest.raises(ValueError, match="slots"):
+        kernels.encode94_decide(*args[:-1], torch.zeros(
+            (16, 4, 16), dtype=torch.uint8, device=dev), tabs)
+    with pytest.raises(TypeError):
+        kernels.encode94_analyze(torch.zeros((2, 480), dtype=torch.int32,
+                                             device=dev), tabs["fq"])
+    out = kernels.encode94_decide(*args, tabs)
+    nf = torch.full((16,), 16, dtype=torch.int32, device=dev)
+    wanted = torch.ones((16, 3), dtype=torch.bool, device=dev)
+    ci17 = torch.zeros((16, 17, 255), dtype=torch.int32, device=dev)
+    with pytest.raises(ValueError, match="multiples of 16"):
+        kernels.encode94_select(ci17, *out, nf, x["keep"], x["hdr_scale"],
+                                wanted, tabs)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.encode94_select(x["ci"], *out, nf[1:], x["keep"],
+                                x["hdr_scale"], wanted, tabs)
