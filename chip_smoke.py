@@ -96,10 +96,12 @@ non-zero):
      distinct pre-adjustment columns; the analysis's as the four int8-plane
      products that int8 tensor cores run at 1,979 TOP/s, exactly), and
      encode94_analyze beside a float64 torch.matmul of the same product
-     (the library yardstick); x realtime of encode_files_device (128 s of
-     audio over the wall time, after one warm-up), with each chunk's host
-     prep, upload, device time, fetch and emit, and the peak device memory
-     of one chunk
+     (the library yardstick); encode94_decide's launch geometry and nvcc
+     report, and its reciprocal division against the integer division on
+     every |a| <= 2^20 and scale table entry; x realtime of
+     encode_files_device (128 s of audio over the wall time, after one
+     warm-up), with each chunk's host prep, upload, device time, fetch and
+     emit, and the peak device memory of one chunk
 Then one JSON line of per-kernel results (launches: over all five paths,
 each path's own printed in phases 4, 7, 10, 11 and 13), and last the
 {"ok": true, ...} line.
@@ -175,6 +177,18 @@ def _device_ms(fn, reps, torch, sleep_s=0.05):
 
 def _max_abs_err(a, b):
     return int(((a.long() & 0xFFFF) - (b.long() & 0xFFFF)).abs().max())
+
+
+def _ptxas_lines(report, kernel):
+    """nvcc's -Xptxas -v lines (registers, shared memory, spills) of the
+    entry functions whose names contain ``kernel``."""
+    out, on = [], False
+    for ln in report.splitlines():
+        if "Compiling entry function" in ln:
+            on = kernel in ln
+        elif on and ("Used" in ln or "spill" in ln):
+            out.append(ln.replace("ptxas info    :", "").strip())
+    return out
 
 
 def _bound(n_bytes, n_ops, ops_per_s=INT32_OPS_PER_S):
@@ -1305,6 +1319,25 @@ def main():
               phase=13, shape=prm_label)
 
     check_encoder(None, ci_d, nf_d, sil_max, ta)
+    # the decisions' launch geometry, its nvcc report, and its reciprocal
+    # division against the integer one on every input
+    geo = kernels.encode94_decide_geometry(dev)
+    blocks = -(-Fm // geo["tile_frames"]) * B
+    wave = geo["blocks_per_sm"] * geo["sms"]
+    rdiv_bad = kernels.encode94_rdiv_check(etabs["scale_mant"])
+    if rdiv_bad:
+        raise AssertionError(f"encode94_decide's reciprocal rdiv differs "
+                             f"on {rdiv_bad} inputs")
+    print(f"phase 13 encode94_decide geometry: {blocks} blocks of "
+          f"{geo['threads']} threads ({geo['tile_frames']} frames each), "
+          f"{geo['shared_bytes']} B static shared memory and "
+          f"{geo['registers']} registers a thread, {geo['blocks_per_sm']} "
+          f"blocks an SM: {wave} a wave on {geo['sms']} SMs "
+          f"({blocks / wave:.2f} waves); nvcc: "
+          + (" | ".join(_ptxas_lines(report, "encode94_decide_kernel"))
+             or "not rebuilt in this run")
+          + "; reciprocal rdiv equals the integer division on all "
+          f"|a| <= 2^20 x 65 scale table entries")
     wrap = enc.CompressionParams(target_bit_rate=48000,
                                  maximum_quantization_error=40 / 32768,
                                  minimum_dynamic_range=60 / 32768)

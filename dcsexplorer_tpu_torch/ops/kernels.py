@@ -104,6 +104,11 @@ _SIGNATURES = {
     # sil_max, out15, out14, silent, n_streams, K, fmax, stream
     "dcs_encode94_decide": [_P, _P, _P, *[_P] * 5, _P, _P, _P, _I, _P, _P,
                             _P, _I, _I, _I, _P],
+    # six ints out (frames and threads a block, static shared bytes,
+    # registers, resident blocks an SM, SMs)
+    "dcs_encode94_decide_geometry": [_P],
+    # scale_mant, mismatch count (uint64 on the card), stream
+    "dcs_encode94_rdiv_check": [_P, _P, _P],
     # ci, out15, out14, silent, nf, keep, hdr_scale, wanted, tables
     # (_check_encoder_tables' ten), delta_len, codes, pidx, nbits, done,
     # packed, n_streams, K, fmax, stream
@@ -643,6 +648,38 @@ def encode94_decide(ci, sil_max, keep, thr, dlim, cape, hdr_scale, tabs):
             thr.data_ptr(), dlim.data_ptr(), cape.data_ptr(), int(sil_max),
             out15.data_ptr(), out14.data_ptr(), silent.data_ptr(), B, K, F)
     return out15, out14, silent
+
+
+def encode94_decide_geometry(device):
+    """encode94_decide's launch geometry on the card: a dict of its frames
+    and threads a block, static shared bytes, registers a thread, resident
+    blocks an SM and the card's SMs.  Launches nothing."""
+    out = (ctypes.c_int * 6)()
+    fn = load().dcs_encode94_decide_geometry
+    with torch.cuda.device(torch.device(device)):
+        err = fn(ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"encode94_decide_geometry: CUDA error {err}")
+    keys = ("tile_frames", "threads", "shared_bytes", "registers",
+            "blocks_per_sm", "sms")
+    return dict(zip(keys, list(out)))
+
+
+def encode94_rdiv_check(scale_mant):
+    """The number of (a, scale table entry) pairs, over every |a| <= 2^20
+    and the 65 entries, on which encode94_decide.cu's reciprocal rdiv
+    differs from the integer division, counted on scale_mant's card.  Not a
+    kernel of any path: no launch count."""
+    _check("scale_mant", scale_mant, torch.int32, (4,))
+    dev = scale_mant.device
+    bad = torch.zeros(1, dtype=torch.int64, device=dev)
+    fn = load().dcs_encode94_rdiv_check
+    with torch.cuda.device(dev):
+        err = fn(scale_mant.data_ptr(), bad.data_ptr(),
+                 torch.cuda.current_stream(dev).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"encode94_rdiv_check: CUDA error {err} at launch")
+    return int(bad.item())
 
 
 def encode94_select(ci, out15, out14, silent, nf, keep, hdr_scale, wanted,

@@ -908,7 +908,7 @@ def test_decode93_pcm_wrapper_refuses_bad_tensors(dev, tabs93):
 # ----------------------------------------------------------------------
 # the 1994+ encoder
 
-ENC_SLOTS = {1: ((1, 3),), 3: ((0, 0), (1, 0), (1, 3))}
+ENC_SLOTS = {1: ((1, 3),), 2: ((1, 0), (1, 3)), 3: ((0, 0), (1, 0), (1, 3))}
 
 
 def _adversarial_pcm(n):
@@ -973,10 +973,14 @@ def test_encode94_analyze_kernel_on_extreme_matrices(dev, matrix):
     assert torch.equal(got, d94.analyze94_plain(pcm, fq))
 
 
-def _encoder_inputs(dev, K, fmax, seed, maxerr):
-    """One stream per bands_keep 1..16, coefficients from random PCM of
-    three amplitudes with silent stretches, random header scale codes over
-    0..255, thresholds from a maximum quantization error of maxerr/32768."""
+def _encoder_inputs(dev, K, fmax, seed, maxerr, codes=256, keep_all=False,
+                    all_pass=False):
+    """One stream per bands_keep 1..16 (or every band kept), coefficients
+    from random PCM of three amplitudes with silent stretches, random
+    header scale codes over 0..codes-1, thresholds from a maximum
+    quantization error of maxerr/32768; with all_pass, thresholds every
+    candidate passes on the odd bands (band 15 too) and -1 (none passes)
+    on the even ones."""
     rng = np.random.default_rng(seed)
     B = 16
     amp = np.asarray([30000, 3000, 100] * 6)[:B, None]
@@ -991,13 +995,17 @@ def _encoder_inputs(dev, K, fmax, seed, maxerr):
         minimum_dynamic_range=maxerr / 32768)
     _, arrs = d94.setup_compact([np.zeros((1, 255), np.int32)], params,
                                 ENC_SLOTS[K])
-    hdr = rng.integers(0, 256, size=(B, K, 16)).astype(np.uint8)
+    hdr = rng.integers(0, codes, size=(B, K, 16)).astype(np.uint8)
     hdr[::2] %= 48                                    # realistic codes too
     keep = np.arange(16)[None] < np.arange(1, B + 1)[:, None]
+    keep |= keep_all
+    thr, dlim, cape = (np.array(arrs[k]) for k in ("thr", "dlim", "cape"))
+    if all_pass:
+        thr[1::2], dlim[1::2], cape[1::2] = 1 << 30, 2 ** 31 - 1, 1 << 25
+        thr[0::2] = -1
     t = lambda a, dt=None: torch.tensor(np.asarray(a), device=dev, dtype=dt)
     return dict(ci=ci, sil_max=arrs["sil_max"], keep=t(keep),
-                thr=t(arrs["thr"]), dlim=t(arrs["dlim"]),
-                cape=t(arrs["cape"]), hdr_scale=t(hdr))
+                thr=t(thr), dlim=t(dlim), cape=t(cape), hdr_scale=t(hdr))
 
 
 @pytest.mark.parametrize("K", [1, 3])
@@ -1025,6 +1033,102 @@ def test_encode94_decide_and_select_kernels(dev, encoders, K, fmax, maxerr):
         packed = kernels.encode94_select(*sel)
         torch.cuda.synchronize()
         assert torch.equal(packed, d94.select94_plain(*sel)), pattern
+
+
+def _decide_equal(x, tabs):
+    args = (x["ci"], x["sil_max"], x["keep"], x["thr"], x["dlim"],
+            x["cape"], x["hdr_scale"])
+    got = kernels.encode94_decide(*args, tabs)
+    torch.cuda.synchronize()
+    want = d94.decide94_plain(*args, tabs)
+    for g, w, name in zip(got, want, ("out15", "out14", "silent")):
+        assert torch.equal(g, w), name
+    assert int(got[1].max()) <= 14
+    return got
+
+
+def test_encode94_rdiv_check_on_every_input(dev, encoders):
+    tabs = dict(encoders[3].named_buffers())
+    assert kernels.encode94_rdiv_check(tabs["scale_mant"]) == 0
+
+
+@pytest.mark.parametrize("K", [1, 2, 3])
+@pytest.mark.parametrize("fmax", [1, 13, 17, 272])
+def test_encode94_decide_kernel_shapes(dev, encoders, K, fmax):
+    """Every slot count, one frame, tiles cut short (13, 17: not multiples
+    of the kernel's 8-frame tile) and the chunk's 272 frames."""
+    tabs = dict(encoders[K].named_buffers())
+    _decide_equal(_encoder_inputs(dev, K, fmax, fmax + K, 40), tabs)
+    _decide_equal(_encoder_inputs(dev, K, fmax, fmax + K + 1, 40, codes=24,
+                                  keep_all=True, all_pass=True), tabs)
+
+
+@pytest.mark.parametrize("K", [1, 3])
+def test_encode94_decide_kernel_on_every_scale_code(dev, encoders, K):
+    """Each of the 64 values of sc & 63 on some band of every slot (and
+    with the adjustments of the type-1 slots on top), every band kept."""
+    tabs = dict(encoders[K].named_buffers())
+    x = _encoder_inputs(dev, K, 24, 40 + K, 40, keep_all=True)
+    codes = (np.arange(16 * 16).reshape(16, 1, 16) + 5 * np.arange(K)
+             [None, :, None]) % 64
+    x["hdr_scale"] = torch.tensor(codes.astype(np.uint8), device=dev)
+    _decide_equal(x, tabs)
+
+
+def test_encode94_decide_kernel_at_rounding_ties_and_the_range_ends(
+        dev, encoders):
+    """Coefficients on rdiv's ties (2|a| = (2q+1) sf) of each band's scale
+    factor in the type-0 slot, and at +-2^20, with all-pass and no-pass
+    thresholds."""
+    tabs = dict(encoders[3].named_buffers())
+    x = _encoder_inputs(dev, 3, 16, 50, 40, codes=40, keep_all=True,
+                        all_pass=True)
+    w, sf, _, _ = d94.derive_luts(x["hdr_scale"], x["keep"], tabs)
+    sf0 = sf[:, 0, :, 1, 0].long().cpu().numpy()          # [B,16]
+    rng = np.random.default_rng(51)
+    ci = x["ci"].cpu().numpy()
+    for band in range(16):
+        lo, n = int(c94.BAND_START[band]), int(c94.BAND_SIZES[band])
+        s = sf0[:, band][:, None, None]
+        q = rng.integers(0, 1 << 6, size=(ci.shape[0], ci.shape[1], n))
+        tie = (2 * q + 1) * s // 2 * rng.choice([-1, 1], size=q.shape)
+        ci[:, :, lo:lo + n] = np.where(s % 2 == 0, tie, ci[:, :, lo:lo + n])
+    ci[:, ::3, 200] = 1 << 20
+    ci[:, 1::3, 120] = -(1 << 20)
+    x["ci"] = torch.tensor(np.clip(ci, -(1 << 20), 1 << 20).astype(np.int32),
+                           device=dev)
+    got = _decide_equal(x, tabs)
+    # on the all-pass bands of the type-0 slot (keys rise with the code)
+    # candidate 1 wins wherever the first fit was above it
+    assert (got[0][:, 0, :, 1::2] == 1).any()
+
+
+def test_encode94_decide_kernel_with_no_band_kept(dev, encoders):
+    tabs = dict(encoders[3].named_buffers())
+    x = _encoder_inputs(dev, 3, 17, 60, 40)
+    x["keep"] = torch.zeros_like(x["keep"])
+    _decide_equal(x, tabs)
+
+
+@pytest.mark.parametrize("kind", ["dips", "rising"])
+def test_encode94_decide_kernel_on_synthetic_width_tables(dev, encoders,
+                                                          kind):
+    """Widths of codes 1..6 rewritten: with dips (a later candidate can
+    have the smaller key) or sorted with ties; the kernel's minimum over
+    every passing candidate must give the plain answer on both."""
+    tabs = dict(encoders[3].named_buffers())
+    rng = np.random.default_rng(70)
+    w = tabs["w_tab"].cpu().numpy().copy()
+    if kind == "dips":
+        w[:, :, 1:7] = np.clip(np.arange(1, 7)
+                               + rng.integers(-2, 3, (3, 16, 6)), 1, 15)
+    else:
+        w[:, :, 1:7] = np.sort(rng.integers(1, 9, (3, 16, 6)), axis=2)
+    tabs["w_tab"] = torch.tensor(w, device=dev)
+    for seed in range(3):
+        _decide_equal(_encoder_inputs(dev, 3, 19, 71 + seed, 40, codes=24,
+                                      keep_all=True, all_pass=True), tabs)
+        _decide_equal(_encoder_inputs(dev, 3, 19, 75 + seed, 200), tabs)
 
 
 def test_encode94_code_15_after_a_silent_frame_on_the_card(dev):
