@@ -98,7 +98,9 @@ non-zero):
      encode94_analyze beside a float64 torch.matmul of the same product
      (the library yardstick); encode94_decide's launch geometry and nvcc
      report, and its reciprocal division against the integer division on
-     every |a| <= 2^20 and scale table entry; x realtime of
+     every |a| <= 2^20 and scale table entry; encode94_select's two
+     kernels' geometry, nvcc report and times each launched alone; x
+     realtime of
      encode_files_device (128 s of audio over the wall time, after one
      warm-up), with each chunk's host prep, upload, device time, fetch and
      emit, and the peak device memory of one chunk
@@ -1338,6 +1340,35 @@ def main():
              or "not rebuilt in this run")
           + "; reciprocal rdiv equals the integer division on all "
           f"|a| <= 2^20 x 65 scale table entries")
+    # the select kernels' launch geometry, their nvcc report, and their two
+    # launches timed alone on the card's clock (each after a whole run)
+    sgeo = kernels.encode94_select_geometry(dev)
+    dec_d = kernels.encode94_decide(ci_d, sil_max, ta["keep"], ta["thr"],
+                                    ta["dlim"], ta["cape"], ta["hdr_scale"],
+                                    etabs)
+    scan_fn, size_fn, _ = kernels.encode94_select_parts(
+        ci_d, *dec_d, nf_d, ta["keep"], ta["hdr_scale"], ta["wanted"], etabs)
+    scan_fn()
+    scan_ms = _device_ms(scan_fn, 20, torch)
+    size_ms = _device_ms(size_fn, 20, torch)
+    waves = []
+    for part, blocks in (("scan", sgeo["scan_blocks"] * K * B),
+                         ("size", -(-Fm // sgeo["size_tile_frames"]) * K * B)):
+        waves.append(f"{part}: {blocks} blocks of {sgeo[part + '_threads']} "
+                     f"threads, {sgeo[part + '_shared_bytes']} B static "
+                     f"shared memory, {sgeo[part + '_registers']} registers "
+                     f"a thread, {sgeo[part + '_blocks_per_sm']} blocks an "
+                     f"SM ({blocks / (sgeo[part + '_blocks_per_sm'] * sgeo['sms']):.2f} "
+                     f"waves on {sgeo['sms']} SMs)")
+    print("phase 13 encode94_select geometry: " + "; ".join(waves)
+          + "; nvcc: "
+          + (" | ".join(_ptxas_lines(report, "encode94_scan")
+                        + _ptxas_lines(report, "encode94_size"))
+             or "not rebuilt in this run")
+          + f"; on the card's clock, each launch alone: scan {scan_ms:.4f} "
+          f"ms, sizes {size_ms:.4f} ms (whole: "
+          f"{times['encode94_select']:.4f} ms, the sizes' launch and "
+          f"staging overlapping the scan)")
     wrap = enc.CompressionParams(target_bit_rate=48000,
                                  maximum_quantization_error=40 / 32768,
                                  minimum_dynamic_range=60 / 32768)

@@ -59,16 +59,8 @@
 //      16-byte stores.
 // There is no / or % in the index arithmetic.
 //
-// Division by multiplication.  rdiv(a, sf) = sign(a) floor(n / d) with
-// n = 2|a| + sf < 2^22 (|a| <= 2^20, sf < 2^16) and d = 2 sf in [2, 2^17).
-// With s = floor(log2(d - 1)) (so 2^s < d <= 2^(s+1)) and m = ceil(2^(32+s)
-// / d): m < 2^32 (2^s <= d - 1), and m d = 2^(32+s) + e with 0 <= e < d, so
-// n m / 2^(32+s) = n/d + n e / (d 2^(32+s)) where n e < 2^22 2^(s+1) <=
-// 2^(32+s); the excess is under 1/d and cannot reach the next integer
-// above n/d: floor(n m / 2^(32+s)) = floor(n / d), that is
-// __umulhi(n, m) >> s.  kernels.encode94_rdiv_check counts, on the card,
-// the (a, entry) pairs where it differs from the integer division: all
-// |a| <= 2^20 and all 65 entries.
+// Division by multiplication: rdiv(a, sf) as __umulhi(2|a| + sf, m) >> s
+// from the 65-entry scale table (encode94_scale.cuh, with its proof).
 //
 // Every value stays in int32 without wrap: |ci| <= 2^20, scale factors
 // < 2^16, widths <= 15, so (2^w)*sf < 2^31, and the error terms are capped
@@ -86,6 +78,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "encode94_scale.cuh"
+
 namespace {
 
 constexpr int kTileShift = 3;
@@ -99,7 +93,6 @@ constexpr int kP = 5;                    // pre-adjustment columns (PMAX)
 constexpr int kMaxPass = kMaxSlots * kBands * kP;
 constexpr int kMaxPairs = kMaxPass * kTile;
 constexpr int kListCap = 2048;           // candidates a window
-constexpr int kDead = 64;                // the scale table's sf = 1 entry
 constexpr int kDClamp = 5793;
 constexpr int kBig = 1 << 30;
 constexpr int kCandBig = 1 << 14;
@@ -109,30 +102,6 @@ __device__ __forceinline__ int band_start(int b) {
 }
 __device__ __forceinline__ int band_size(int b) {
     return b == 0 ? 7 : (b == 1 ? 8 : (b == 15 ? 32 : 16));
-}
-
-// entry i of the scale table: (sf, m, s) with sf of the scale code i & 63
-// (i < 64) or 1 (i == 64), and the reciprocal of d = 2 sf (note above)
-__device__ __forceinline__ int4 scale_entry(const int32_t* mant, int i) {
-    int sf = 1;
-    if (i < kDead) {
-        sf = mant[i & 3] >> (15 - ((i >> 2) & 0xF));
-        sf = sf < 1 ? 1 : sf;
-    }
-    const unsigned d = 2u * static_cast<unsigned>(sf);
-    const int s = 31 - __clz(static_cast<int>(d - 1u));
-    const unsigned long long m =
-        ((1ull << (32 + s)) + d - 1u) / static_cast<unsigned long long>(d);
-    return make_int4(sf, static_cast<int>(static_cast<unsigned>(m)), s, 0);
-}
-
-// sign(a) * floor((2|a| + sf) / 2sf) for |a| <= 2^20, by the reciprocal
-__device__ __forceinline__ int rdiv(int a, int4 t) {
-    const unsigned n = 2u * static_cast<unsigned>(a < 0 ? -a : a)
-                       + static_cast<unsigned>(t.x);
-    const int q = static_cast<int>(
-        __umulhi(n, static_cast<unsigned>(t.y)) >> t.z);
-    return a < 0 ? -q : q;
 }
 
 // pass descriptor bits: band 0-3, slot 4-5, column 6-8, columns it covers
@@ -481,26 +450,15 @@ extern "C" int dcs_encode94_decide(
     return static_cast<int>(cudaGetLastError());
 }
 
-// the decide kernel's geometry on this card: frames a block, threads a
-// block, static shared bytes, registers a thread, resident blocks an SM,
-// SMs
+// the decide kernel's geometry on this card: frames a block, then
+// kernel_geometry's four (encode94_scale.cuh), then the SMs
 extern "C" int dcs_encode94_decide_geometry(int* out) {
-    cudaFuncAttributes attr;
-    cudaError_t err = cudaFuncGetAttributes(&attr, encode94_decide_kernel);
-    if (err != cudaSuccess) return static_cast<int>(err);
-    int per_sm = 0, dev = 0, sms = 0;
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, encode94_decide_kernel, kThreads, 0);
-    if (err == cudaSuccess) err = cudaGetDevice(&dev);
-    if (err == cudaSuccess)
-        err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
     out[0] = kTile;
-    out[1] = kThreads;
-    out[2] = static_cast<int>(attr.sharedSizeBytes);
-    out[3] = attr.numRegs;
-    out[4] = per_sm;
-    out[5] = sms;
-    return static_cast<int>(err);
+    int err = kernel_geometry(
+        reinterpret_cast<const void*>(encode94_decide_kernel), kThreads,
+        out + 1);
+    if (err == 0) err = sm_count(out + 5);
+    return err;
 }
 
 extern "C" int dcs_encode94_rdiv_check(const int32_t* mant,

@@ -28,7 +28,9 @@ byte-identical to the host encoder's.
 Each dispatcher (``analyze94``, ``decide94``, ``select94``) runs the plain
 version for CPU tensors and the kernel for CUDA tensors; nothing falls
 back.  Contract of the coefficients everywhere: |ci| <= 2^20 (the analysis
-clips to it).
+clips to it; ``encode_batch`` and ``DeviceEncoder94.forward`` refuse a
+caller's coefficients outside it, where the kernels' reciprocal division
+would not be exact).
 """
 
 import functools
@@ -238,6 +240,15 @@ def derive_luts(hdr_scale, keep, tabs):
     amax = hprod - ((sf + 2) >> 1)
     amin = -(hprod + ((sf - 1) >> 1))
     return tuple(t.int() for t in (w, sf, amin, amax))
+
+
+def check_ci_range(lo, hi):
+    """Refuse coefficients outside +-2^20 (the encoder kernels' range):
+    lo and hi are the least and the greatest coefficient."""
+    lim = kernels.ENCODE94_CI_LIMIT
+    if lo < -lim or hi > lim:
+        raise ValueError(f"coefficients in [{lo}, {hi}]: the encoder takes "
+                         f"|ci| <= 2^20")
 
 
 def _pad_grid(ci):
@@ -491,9 +502,15 @@ class DeviceEncoder94(nn.Module):
         """x: int16 PCM [B, Fmax*240 + 240] (analyzed here) or int32
         coefficients [B, Fmax, 255]; nf [B] int32; sil_max int; keep [B,16]
         bool; thr, dlim, cape [16] int32; hdr_scale [B,K,16] uint8; wanted
-        [B,K] bool.  Returns the packed rows, uint8 [B, 4K + 1 + 32 Fmax]."""
+        [B,K] bool.  Returns the packed rows, uint8 [B, 4K + 1 + 32 Fmax].
+        Raises ValueError on int32 coefficients outside +-2^20 (one
+        reduction; the analysis of int16 PCM clips to that range)."""
         tabs = dict(self.named_buffers())
-        ci = analyze94(x, self.fq) if x.dtype == torch.int16 else x
+        if x.dtype == torch.int16:
+            ci = analyze94(x, self.fq)
+        else:
+            ci = x
+            check_ci_range(*torch.stack(torch.aminmax(ci)).tolist())
         out15, out14, silent = decide94(ci, sil_max, keep, thr, dlim, cape,
                                         hdr_scale, tabs)
         return select94(ci, out15, out14, silent, nf, keep, hdr_scale,
@@ -549,7 +566,10 @@ def _fetch(host, done):
 def encode_batch(ci_list, params, device="cuda"):
     """Encode a batch of coefficient arrays ([F_i, 255] int32) in one
     device program.  Returns the stream bytes of each, byte-identical to
-    core94.encode_stream94."""
+    core94.encode_stream94.  Raises ValueError on coefficients outside
+    +-2^20."""
+    for c in ci_list:
+        check_ci_range(int(c.min()), int(c.max()))
     dev = _device(device)
     fmax = _bucket(max(ci.shape[0] for ci in ci_list))
     ci = np.zeros((len(ci_list), fmax, 255), dtype=np.int32)

@@ -32,7 +32,7 @@ SOURCES = ("decode94_fb.cu", "decode94_bank.cu", "dequant_mix.cu",
            "transform94_pcm.cu", "decode93_fb.cu", "transform93_pcm.cu",
            "decode93_pcm.cu", "encode94_analyze.cu", "encode94_decide.cu",
            "encode94_select.cu")
-HEADERS = ("dcs_fixmath.cuh", "decode94_walk.cuh")
+HEADERS = ("dcs_fixmath.cuh", "decode94_walk.cuh", "encode94_scale.cuh")
 LIB_PATH = os.path.join(_REPO, "build", "torch_kernels", "libdcs_torch.so")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
@@ -55,6 +55,8 @@ TRANSFORM94_PCM_TILE = TRANSFORM93_PCM_TILE = 64
 DECODE93_PCM_TILE = 63          # with the halo, 8 frames for each of 8 warps
 # format slots of the encoder kernels (at most (0,0), (1,0), (1,3))
 ENCODE94_MAX_SLOTS = 3
+# the encoder kernels' coefficient range (their reciprocal division's)
+ENCODE94_CI_LIMIT = 1 << 20
 
 _lib = None
 
@@ -114,6 +116,13 @@ _SIGNATURES = {
     # packed, n_streams, K, fmax, stream
     "dcs_encode94_select": [*[_P] * 8, *[_P] * 10, _I, *[_P] * 5, _I, _I, _I,
                             _P],
+    # the same, then parts (1: the scan launch, 2: the size launch), stream
+    "dcs_encode94_select_parts": [*[_P] * 8, *[_P] * 10, _I, *[_P] * 5, _I,
+                                  _I, _I, _I, _P],
+    # eleven ints out (encode94_select_geometry's keys)
+    "dcs_encode94_select_geometry": [_P],
+    # two ints out (encode94_select_layout's)
+    "dcs_encode94_select_layout": [_P],
 }
 
 
@@ -634,7 +643,12 @@ def encode94_analyze(pcm, fq):
 def encode94_decide(ci, sil_max, keep, thr, dlim, cape, hdr_scale, tabs):
     """The encoder's decision tables on the card (csrc/encode94_decide.cu):
     (out15, out14 [B, K, Fmax, 16, 5] uint8, silent [B, Fmax, 16] bool); see
-    encoder.device94.decide94_plain for the contract."""
+    encoder.device94.decide94_plain for the contract.  Precondition:
+    |ci| <= ENCODE94_CI_LIMIT (2^20), where its reciprocal division and its
+    int32 error sums are exact; the callers (encoder.device94's
+    encode_batch and DeviceEncoder94.forward) refuse other input, and the
+    analysis clips to it.  Not checked here: that would cost a device
+    reduction and a synchronisation on every call."""
     B, F, K = _check_batch(ci, hdr_scale, keep)
     dev = ci.device
     for name, t in (("thr", thr), ("dlim", dlim), ("cape", cape)):
@@ -682,12 +696,20 @@ def encode94_rdiv_check(scale_mant):
     return int(bad.item())
 
 
-def encode94_select(ci, out15, out14, silent, nf, keep, hdr_scale, wanted,
-                    tabs):
-    """The encoder's scan, sizes, winner and packed rows on the card
-    (csrc/encode94_select.cu: two kernels from one entry) -> uint8
-    [B, 4K + 1 + 32 Fmax]; see encoder.device94.select94_plain for the
-    contract.  Fmax is a multiple of 16 (the frame bucket)."""
+def encode94_select_layout(lib=None):
+    """(sums, max_delta) of csrc/encode94_select.cu: the int32 size sums
+    its scratch holds a (stream, slot), and the most delta codes it
+    stages; from lib (a build of that source) or the package's library."""
+    out = (ctypes.c_int * 2)()
+    (lib or load()).dcs_encode94_select_layout(
+        ctypes.cast(out, ctypes.c_void_p))
+    return tuple(out)
+
+
+def _select_args(ci, out15, out14, silent, nf, keep, hdr_scale, wanted,
+                 tabs):
+    """encode94_select's checked arguments and fresh buffers: (the C
+    arguments before the stream, packed, the scratch tensors)."""
     B, F, K = _check_batch(ci, hdr_scale, keep)
     dev = ci.device
     if F % 16:
@@ -698,20 +720,81 @@ def encode94_select(ci, out15, out14, silent, nf, keep, hdr_scale, wanted,
     _check("nf", nf, torch.int32, (B,), dev)
     _check("wanted", wanted, torch.bool, (B, K), dev)
     tables = _check_encoder_tables(tabs, K, dev, 10)
-    # the scan loads 4-byte words of the decisions
+    sums, max_delta = encode94_select_layout()
+    if not 1 <= tabs["delta_bits"].numel() <= max_delta:
+        raise ValueError(f"{tabs['delta_bits'].numel()} delta codes; the "
+                         f"kernel takes 1..{max_delta}")
+    # the kernels load and store 4-byte words of the decisions and flags
     for name, t in (("out15", out15), ("out14", out14), ("silent", silent)):
         if t.data_ptr() % 4:
             raise ValueError(f"{name}: not 4-byte aligned")
     codes = torch.empty((B, K, F, 16), dtype=torch.uint8, device=dev)
     pidx = torch.empty_like(codes)
-    nbits = torch.empty((B, K), dtype=torch.int32, device=dev)
+    nbits = torch.empty((B, K, sums), dtype=torch.int32, device=dev)
     done = torch.empty((B,), dtype=torch.int32, device=dev)
     packed = torch.empty((B, 4 * K + 1 + 32 * F), dtype=torch.uint8,
                          device=dev)
-    _launch("encode94_select", "dcs_encode94_select", dev, ci.data_ptr(),
-            out15.data_ptr(), out14.data_ptr(), silent.data_ptr(),
-            nf.data_ptr(), keep.data_ptr(), hdr_scale.data_ptr(),
-            wanted.data_ptr(), *tables, tabs["delta_bits"].numel(), codes.data_ptr(),
-            pidx.data_ptr(), nbits.data_ptr(), done.data_ptr(),
-            packed.data_ptr(), B, K, F)
+    args = [ci.data_ptr(), out15.data_ptr(), out14.data_ptr(),
+            silent.data_ptr(), nf.data_ptr(), keep.data_ptr(),
+            hdr_scale.data_ptr(), wanted.data_ptr(), *tables,
+            tabs["delta_bits"].numel(), codes.data_ptr(), pidx.data_ptr(),
+            nbits.data_ptr(), done.data_ptr(), packed.data_ptr(), B, K, F]
+    # the scratch lives as long as the arguments
+    return args, packed, (codes, pidx, nbits, done)
+
+
+def encode94_select(ci, out15, out14, silent, nf, keep, hdr_scale, wanted,
+                    tabs):
+    """The encoder's scan, sizes, winner and packed rows on the card
+    (csrc/encode94_select.cu: two kernels from one entry) -> uint8
+    [B, 4K + 1 + 32 Fmax]; see encoder.device94.select94_plain for the
+    contract.  Fmax is a multiple of 16 (the frame bucket).  Precondition:
+    |ci| <= ENCODE94_CI_LIMIT (2^20), where its reciprocal division is
+    exact (see encode94_decide)."""
+    args, packed, _scratch = _select_args(ci, out15, out14, silent, nf, keep,
+                                          hdr_scale, wanted, tabs)
+    _launch("encode94_select", "dcs_encode94_select", ci.device, *args)
     return packed
+
+
+def encode94_select_parts(ci, out15, out14, silent, nf, keep, hdr_scale,
+                          wanted, tabs):
+    """Launchers of encode94_select's two kernels apart, for timing them:
+    (scan, size, packed), each launcher a function of no argument that
+    launches one kernel on the same arguments and scratch (the size launch
+    reads what the last scan launch left, and writes packed).  Neither is
+    a path's launch: no count."""
+    args, packed, scratch = _select_args(ci, out15, out14, silent, nf,
+                                          keep, hdr_scale, wanted, tabs)
+    dev = ci.device
+    fn = load().dcs_encode94_select_parts
+
+    def part(p):
+        def run(_keep=scratch):
+            with torch.cuda.device(dev):
+                err = fn(*args, p,
+                         torch.cuda.current_stream(dev).cuda_stream)
+            if err != 0:
+                raise RuntimeError(f"encode94_select part {p}: CUDA error "
+                                   f"{err} at launch")
+        return run
+    return part(1), part(2), packed
+
+
+def encode94_select_geometry(device):
+    """encode94_select's two kernels on the card: a dict of the scan's
+    blocks a (stream, slot), threads a block, static shared bytes,
+    registers a thread and resident blocks an SM, the same for the size
+    kernel with frames a block in place of the first, and the card's SMs.
+    Launches nothing."""
+    out = (ctypes.c_int * 11)()
+    fn = load().dcs_encode94_select_geometry
+    with torch.cuda.device(torch.device(device)):
+        err = fn(ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"encode94_select_geometry: CUDA error {err}")
+    keys = ("scan_blocks", "scan_threads", "scan_shared_bytes",
+            "scan_registers", "scan_blocks_per_sm", "size_tile_frames",
+            "size_threads", "size_shared_bytes", "size_registers",
+            "size_blocks_per_sm", "sms")
+    return dict(zip(keys, list(out)))

@@ -278,3 +278,43 @@ def test_entry_points_default_to_the_card(call):
         else:
             t_d94.encode_batch([np.zeros((1, 255), np.int32)],
                                t_enc.CompressionParams())
+
+
+# ----------------------------------------------------------------------
+# the coefficient range the kernels take (|ci| <= 2^20)
+
+@pytest.mark.parametrize("bad", [(1 << 20) + 1, -(1 << 20) - 1])
+def test_encoder_refuses_coefficients_outside_the_range(encoders, bad):
+    rng = np.random.default_rng(4)
+    ci = rng.integers(-300, 300, size=(20, 255)).astype(np.int32)
+    ci[7, 100] = bad
+    params = t_enc.CompressionParams()
+    with pytest.raises(ValueError, match="2\\^20"):
+        t_d94.encode_batch([np.zeros((3, 255), np.int32), ci], params,
+                           device="cpu")
+    slots = t_d94._select_formats(params)
+    x, nf, arrs = _batch_arrays([ci], j_enc.CompressionParams(), slots)
+    with pytest.raises(ValueError, match="2\\^20"):
+        _run_port(encoders(slots), x, nf, arrs)
+
+
+def test_encoder_takes_the_range_ends(encoders):
+    """+-2^20 themselves (the reciprocal division's ends, rounding ties
+    among them) encode as the native host search does, through
+    encode_batch and through the module's int32 form."""
+    rng = np.random.default_rng(5)
+    ci = rng.integers(-300, 300, size=(20, 255)).astype(np.int32)
+    ci[3:6, 40:80] = np.where(np.arange(40) % 2, 1 << 20, -(1 << 20))
+    ci[9, :] = -(1 << 20)
+    params = t_enc.CompressionParams()
+    (got,) = t_d94.encode_batch([ci], params, device="cpu")
+    assert got == t_c94.encode_stream94(ci, params)
+    slots = t_d94._select_formats(params)
+    x, nf, arrs = _batch_arrays([ci], j_enc.CompressionParams(), slots)
+    row = _run_port(encoders(slots), x, nf, arrs)
+    want = np.asarray(j_d94._compiled(x.shape[1], slots, False)(
+        jnp.asarray(x), jnp.asarray(nf), arrs["sil_max"],
+        jnp.asarray(arrs["keep"]), jnp.asarray(arrs["thr"]),
+        jnp.asarray(arrs["dlim"]), jnp.asarray(arrs["cape"]),
+        jnp.asarray(arrs["hdr_scale"]), jnp.asarray(arrs["wanted"])))
+    np.testing.assert_array_equal(row, want)

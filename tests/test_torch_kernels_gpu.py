@@ -33,7 +33,10 @@ frame counts around the 16-frame bucket and the kernels' tiles, random
 header scale codes over 0..255 with every bands_keep from 1 to 16, one and
 three format slots with every wanted pattern, a band that wants code 15
 right after a silent frame, and a batch of 64 streams against the CPU and
-the native host search.  Every comparison is bit for
+the native host search; and for the select kernels alone, random
+decisions under shipped and random pip/dep tables, frame counts 1..Fmax,
+Fmax from 16 to 528 (two rounds of the scan), B 1 and 64, decision bytes
+past 15, and two calls in a row on scratch memory left dirty.  Every comparison is bit for
 bit.  chip_smoke.py covers
 the real catalogs and the full-width session6 and session93a batches.
 """
@@ -1198,3 +1201,110 @@ def test_encoder_wrappers_refuse_bad_tensors(dev, encoders):
     with pytest.raises(ValueError, match="shape"):
         kernels.encode94_select(x["ci"], *out, nf[1:], x["keep"],
                                 x["hdr_scale"], wanted, tabs)
+
+
+def _select_inputs(dev, K, B, fmax, seed, tabs, tables="shipped",
+                   decisions="codes"):
+    """Random select94 inputs: coefficients of several magnitudes (zero
+    runs among them) up to +-2^20, decisions 0..15 (out14 <= 14; or any
+    byte), runs of silent frames, random kept bands, header codes and
+    frame counts 1..fmax (1 and fmax among them); with tables="random",
+    pip and dep of the slots drawn at random (not the shipped ones)."""
+    rng = np.random.default_rng(seed)
+    mag = rng.choice([3, 8, 14, 20], size=(B, 1, 1))
+    ci = rng.integers(-(1 << 20), (1 << 20) + 1, size=(B, fmax, 255))
+    ci = ci >> (20 - mag)
+    ci[:, :, rng.integers(0, 255, size=40)] = 0
+    ci[0, :2, :8] = [[1 << 20, -(1 << 20)] * 4] * 2
+    hi = 256 if decisions == "bytes" else 16
+    out15 = rng.integers(0, hi, size=(B, K, fmax, 16, 5))
+    out14 = rng.integers(0, 256 if decisions == "bytes" else 15,
+                         size=out15.shape)
+    silent = rng.random((B, fmax, 16)) < 0.15
+    silent[:, fmax // 3: fmax // 3 + 5] = True
+    keep = rng.random((B, 16)) < 0.8
+    keep[0] = np.arange(16) < 9
+    hdr = rng.integers(0, 64, size=(B, K, 16))
+    nf = rng.integers(1, fmax + 1, size=B)
+    nf[0], nf[-1] = 1, fmax
+    if tables == "random":
+        tabs = dict(tabs)
+        tabs["pip"] = torch.tensor(rng.integers(0, 5, size=(K, 16)),
+                                   dtype=torch.int32, device=dev)
+        tabs["dep"] = torch.tensor(rng.random((K, 16)) < 0.5, device=dev)
+    t = lambda a, dt: torch.tensor(np.asarray(a), dtype=dt, device=dev)
+    return (t(ci, torch.int32), t(out15, torch.uint8), t(out14, torch.uint8),
+            t(silent, torch.bool), t(nf, torch.int32), t(keep, torch.bool),
+            t(hdr, torch.uint8)), tabs
+
+
+def _select_equal(x, wanted, tabs):
+    got = kernels.encode94_select(*x[:6], x[6], wanted, tabs)
+    torch.cuda.synchronize()
+    want = d94.select94_plain(*x[:6], x[6], wanted, tabs)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("tables", ["shipped", "random"])
+@pytest.mark.parametrize("K", [1, 2, 3])
+@pytest.mark.parametrize("fmax", [16, 48, 272, 528])
+def test_encode94_select_kernel_on_random_decisions(dev, encoders, tables, K,
+                                                    fmax):
+    """Random decisions (every code after every code), shipped and random
+    pip/dep tables, frame counts 1..Fmax, every wanted pattern; 528
+    frames take two rounds of the scan."""
+    x, tabs = _select_inputs(dev, K, 16, fmax, fmax + 10 * K,
+                             dict(encoders[K].named_buffers()), tables)
+    for pattern in range(1 << K):
+        wanted = torch.tensor([[bool(pattern >> k & 1) for k in range(K)]]
+                              * 16, device=dev)
+        _select_equal(x, wanted, tabs)
+
+
+@pytest.mark.parametrize("B", [1, 64])
+def test_encode94_select_kernel_batch_sizes(dev, encoders, B):
+    tabs = dict(encoders[3].named_buffers())
+    x, tabs = _select_inputs(dev, 3, B, 272, B, tabs, "random")
+    _select_equal(x, torch.ones((B, 3), dtype=torch.bool, device=dev), tabs)
+
+
+def test_encode94_select_kernel_on_any_decision_byte(dev, encoders):
+    """Decision bytes past 15 (outside decide's range) are carried as
+    state 15 and written as they are, as the plain version does."""
+    x, tabs = _select_inputs(dev, 3, 16, 48, 5,
+                             dict(encoders[3].named_buffers()), "random",
+                             decisions="bytes")
+    _select_equal(x, torch.ones((16, 3), dtype=torch.bool, device=dev), tabs)
+
+
+def test_encode94_select_kernel_on_dirty_scratch(dev, encoders):
+    """Two calls in a row, each after its scratch's memory was filled with
+    garbage and freed (the caching allocator hands it out again)."""
+    tabs = dict(encoders[3].named_buffers())
+    wanted = torch.ones((16, 3), dtype=torch.bool, device=dev)
+    for seed in (1, 2):
+        x, tb = _select_inputs(dev, 3, 16, 272, 90 + seed, tabs)
+        junk = [torch.full((16 * 3 * 272 * 16,), 0x5A, dtype=torch.uint8,
+                           device=dev) for _ in range(2)]
+        junk.append(torch.full((16 * 3 * 5 + 16,), 12345, dtype=torch.int32,
+                               device=dev))
+        del junk
+        _select_equal(x, wanted, tb)
+
+
+def test_encode94_select_parts_and_geometry(dev, encoders):
+    """The two launches apart (the timing aid) leave the same row; the
+    geometry of both kernels."""
+    tabs = dict(encoders[3].named_buffers())
+    x, tabs = _select_inputs(dev, 3, 16, 272, 7, tabs)
+    wanted = torch.ones((16, 3), dtype=torch.bool, device=dev)
+    before = dict(kernels.LAUNCHES)
+    scan, size, packed = kernels.encode94_select_parts(*x, wanted, tabs)
+    scan()
+    size()
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES == before
+    assert torch.equal(packed, d94.select94_plain(*x, wanted, tabs))
+    geo = kernels.encode94_select_geometry(dev)
+    assert geo["scan_blocks"] == 4 and geo["size_tile_frames"] == 32
+    assert geo["scan_blocks_per_sm"] >= 1 and geo["size_blocks_per_sm"] >= 1

@@ -15,80 +15,35 @@ decide94_plain bit for bit.  Prints the card's name and power limit, each
 build's nvcc report and one line per (params, variant).
 """
 
-import ctypes
 import os
-import subprocess
 import sys
 
-import numpy as np
 import torch
 
-REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, REPO)
-import chip_smoke  # noqa: E402
-from dcsexplorer_tpu_torch.encoder import device94 as d94  # noqa: E402
-from dcsexplorer_tpu_torch.encoder import encoder as enc  # noqa: E402
-from dcsexplorer_tpu_torch.ops import kernels  # noqa: E402
+import encode94_ab as ab
 
-OUT = os.path.join(REPO, "build", "decide94_ab")
+OUT = os.path.join(ab.REPO, "build", "decide94_ab")
 TABLES = ("w_tab", "xa_tab", "peff_tab", "is1", "scale_mant")
-
-
-def build(variants):
-    """{name: the variant's dcs_encode94_decide}; prints each report."""
-    os.makedirs(OUT, exist_ok=True)
-    nvcc = kernels._nvcc()
-    procs = [subprocess.Popen(
-        [nvcc, *kernels.NVCC_FLAGS, "-shared", *flags, src, "-o",
-         os.path.join(OUT, f"{name}.so")], stdout=subprocess.PIPE,
-        stderr=subprocess.STDOUT, text=True)
-        for name, src, flags in variants]
-    fns = {}
-    for (name, _, _), p in zip(variants, procs):
-        out, _ = p.communicate()
-        if p.returncode:
-            raise RuntimeError(f"nvcc failed on {name}:\n{out}")
-        print(f"build {name}: "
-              + " | ".join(chip_smoke._ptxas_lines(out, "decide_kernel")))
-        fn = ctypes.CDLL(os.path.join(OUT, f"{name}.so")).dcs_encode94_decide
-        fn.argtypes = kernels._SIGNATURES["dcs_encode94_decide"]
-        fn.restype = ctypes.c_int
-        fns[name] = fn
-    return fns
 
 
 def main(argv):
     if not torch.cuda.is_available():
         print("decide94_ab: no CUDA device", file=sys.stderr)
         return 1
-    variants = []
-    for spec in argv:
-        name, rest = spec.split("=", 1)
-        src, _, flags = rest.partition(":")
-        variants.append((name, src, flags.split()))
-    fns = build(variants)
+    libs = ab.build([ab.variant(s) for s in argv], OUT, "decide_kernel")
+    fns = {name: ab.bind(lib, "dcs_encode94_decide",
+                         ab.kernels._SIGNATURES["dcs_encode94_decide"])
+           for name, lib in libs.items()}
     dev = torch.device("cuda", 0)
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip())
-    jobs, _ = chip_smoke.enc_jobs(16)
-    slots = d94._select_formats(enc.CompressionParams())
-    tabs = dict(d94.DeviceEncoder94.for_slots(list(slots), dev)
-                .named_buffers())
-    wrap = enc.CompressionParams(target_bit_rate=48000,
-                                 maximum_quantization_error=40 / 32768,
-                                 minimum_dynamic_range=60 / 32768)
+    print(ab.card())
     stream = torch.cuda.current_stream(dev).cuda_stream
-    for label, prm in (("default", enc.CompressionParams()), ("wrap", wrap)):
-        _, _, pcm, _, arrs = d94.prepare_chunk(jobs, prm, slots)
-        t = {k: torch.tensor(np.asarray(v), device=dev)
-             for k, v in arrs.items() if k != "sil_max"}
-        ci = d94.analyze94_plain(torch.tensor(pcm, device=dev), tabs["fq"])
+    for label, x in ab.chunks(dev):
+        ci, tabs = x["ci"], x["tabs"]
         B, F = ci.shape[:2]
-        K = len(slots)
-        args = (ci, arrs["sil_max"], t["keep"], t["thr"], t["dlim"],
-                t["cape"], t["hdr_scale"])
-        want = d94.decide94_plain(*args, tabs)
+        K = x["hdr_scale"].shape[1]
+        want = ab.d94.decide94_plain(ci, x["sil_max"], x["keep"], x["thr"],
+                                     x["dlim"], x["cape"], x["hdr_scale"],
+                                     tabs)
         for name, fn in fns.items():
             got = (torch.zeros((B, K, F, 16, 5), dtype=torch.uint8,
                                device=dev),
@@ -96,12 +51,12 @@ def main(argv):
                                device=dev),
                    torch.zeros((B, F, 16), dtype=torch.bool, device=dev))
 
-            def run(fn=fn, got=got):
-                err = fn(ci.data_ptr(), t["hdr_scale"].data_ptr(),
-                         t["keep"].data_ptr(),
+            def run(fn=fn, got=got, name=name):
+                err = fn(ci.data_ptr(), x["hdr_scale"].data_ptr(),
+                         x["keep"].data_ptr(),
                          *[tabs[n].data_ptr() for n in TABLES],
-                         t["thr"].data_ptr(), t["dlim"].data_ptr(),
-                         t["cape"].data_ptr(), int(arrs["sil_max"]),
+                         x["thr"].data_ptr(), x["dlim"].data_ptr(),
+                         x["cape"].data_ptr(), int(x["sil_max"]),
                          *[g.data_ptr() for g in got], B, K, F, stream)
                 if err:
                     raise RuntimeError(f"{name}: CUDA error {err}")
@@ -113,9 +68,8 @@ def main(argv):
                 if not all(torch.equal(a, b) for a, b in zip(want, got)):
                     raise AssertionError(f"{name} != decide94_plain")
                 exact = " bit-exact"
-            ms = [chip_smoke._device_ms(run, 20, torch) for _ in range(3)]
-            print(f"{label} B={B} F={F} K={K} {name}: "
-                  + ", ".join(f"{m:.4f}" for m in ms) + f" ms{exact}")
+            print(f"{label} B={B} F={F} K={K} {name}: {ab.times(run)} "
+                  f"ms{exact}")
     return 0
 
 
