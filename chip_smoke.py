@@ -94,16 +94,17 @@ non-zero):
      exercise the wrap refinement, timed beside their bounds as in phase 3
      (the decisions' operations counted from this run's candidates over
      distinct pre-adjustment columns; the analysis's as the four int8-plane
-     products that int8 tensor cores run at 1,979 TOP/s, exactly), and
-     encode94_analyze beside a float64 torch.matmul of the same product
-     (the library yardstick); encode94_decide's launch geometry and nvcc
-     report, and its reciprocal division against the integer division on
-     every |a| <= 2^20 and scale table entry; encode94_select's two
-     kernels' geometry, nvcc report and times each launched alone; x
-     realtime of
-     encode_files_device (128 s of audio over the wall time, after one
-     warm-up), with each chunk's host prep, upload, device time, fetch and
-     emit, and the peak device memory of one chunk
+     products that int8 tensor cores run at 1,979 TOP/s, exactly; its
+     coefficients compared as whole int32 words), and encode94_analyze
+     beside a float64 torch.matmul of the same product (the library
+     yardstick); encode94_analyze's and encode94_decide's launch geometry
+     and nvcc report, and encode94_decide's reciprocal division against
+     the integer division on every |a| <= 2^20 and scale table entry;
+     encode94_select's two kernels' geometry, nvcc report and times each
+     launched alone; x realtime of encode_files_device (128 s of audio
+     over the wall time, after one warm-up), with each chunk's host prep,
+     upload, device time, fetch and emit, and the peak device memory of
+     one chunk
 Then one JSON line of per-kernel results (launches: over all five paths,
 each path's own printed in phases 4, 7, 10, 11 and 13), and last the
 {"ok": true, ...} line.
@@ -177,7 +178,11 @@ def _device_ms(fn, reps, torch, sleep_s=0.05):
     return start.elapsed_time(stop) / reps
 
 
-def _max_abs_err(a, b):
+def _max_abs_err(a, b, words=False):
+    """The largest difference of a and b: of their low 16 bits (the
+    decoders' u16 storage), or with words, of their whole values."""
+    if words:
+        return int((a.long() - b.long()).abs().max())
     return int(((a.long() & 0xFFFF) - (b.long() & 0xFFFF)).abs().max())
 
 
@@ -382,18 +387,21 @@ def main():
                             "dcsexplorer_tpu/encoder/device94.py:155")}
 
     def check(name, plain_fn, kern_fn, reps_plain, reps_kern, n_bytes, n_ops,
-              phase=3, shape=None, ops_per_s=INT32_OPS_PER_S):
+              phase=3, shape=None, ops_per_s=INT32_OPS_PER_S, words=False):
         """Kernel against plain, both timed, beside the bound (n_ops at
         ops_per_s).  A check labelled with a ``shape`` is printed only: the
-        kernels line keeps each kernel's check without one."""
+        kernels line keeps each kernel's check without one.  The outputs
+        are compared as u16 storage (the decoders'), or with words as
+        whole values of one dtype (torch.equal)."""
         want = plain_fn()
         got = kern_fn()
         torch.cuda.synchronize()
         pairs = list(zip(want, got)) if isinstance(want, tuple) \
             else [(want, got)]
-        err = max(_max_abs_err(w, g) for w, g in pairs)
+        err = max(_max_abs_err(w, g, words) for w, g in pairs)
         label = name if shape is None else f"{name} ({shape})"
-        if err != 0 or any(w.shape != g.shape for w, g in pairs):
+        if err != 0 or any(w.shape != g.shape for w, g in pairs) or (
+                words and not all(torch.equal(w, g) for w, g in pairs)):
             raise AssertionError(f"{label}: kernel != plain (max abs err "
                                  f"{err})")
         plain_ms = _time_ms(plain_fn, reps_plain, torch)
@@ -1238,11 +1246,26 @@ def main():
     # analysis: each PCM sample and matrix entry read once, ci written once;
     # the product is exact on int8 tensor cores as four int8-plane products
     # (the JAX reference's form), each a multiply-add of 256 x 255 a frame
-    # counted as two operations
+    # counted as two operations; its int32 coefficients (up to +-2^20) are
+    # compared as whole words
     check("encode94_analyze", lambda: d94.analyze94_plain(pcm_d, fq),
           lambda: kernels.encode94_analyze(pcm_d, fq), 3, 20,
           B * L * 2 + fq.numel() * 2 + B * Fm * 255 * 4,
-          4 * 2 * B * Fm * 256 * 255, phase=13, ops_per_s=INT8_TC_OPS_PER_S)
+          4 * 2 * B * Fm * 256 * 255, phase=13, ops_per_s=INT8_TC_OPS_PER_S,
+          words=True)
+    ageo = kernels.encode94_analyze_geometry(dev)
+    blocks = (-(-Fm // ageo["tile_frames"]) * -(-255 // ageo["tile_cols"])
+              * B)
+    wave = ageo["blocks_per_sm"] * ageo["sms"]
+    print(f"phase 13 encode94_analyze geometry: {blocks} blocks of "
+          f"{ageo['threads']} threads ({ageo['tile_frames']} frames x "
+          f"{ageo['tile_cols']} columns each), {ageo['shared_bytes']} B "
+          f"dynamic shared memory, {ageo['registers']} registers and "
+          f"{ageo['local_bytes']} B local memory a thread, "
+          f"{ageo['blocks_per_sm']} blocks an SM: {wave} a wave on "
+          f"{ageo['sms']} SMs ({blocks / wave:.2f} waves); nvcc: "
+          + (" | ".join(_ptxas_lines(report, "encode94_analyze_kernel"))
+             or "not rebuilt in this run"))
     head = pcm_d[:, :Fm * 240].reshape(B, Fm, 240)
     tail = pcm_d[:, 240:240 + Fm * 240].reshape(B, Fm, 240)[:, :, :16]
     frames64 = torch.cat([head, tail], 2).double()

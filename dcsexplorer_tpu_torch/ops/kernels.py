@@ -101,6 +101,8 @@ _SIGNATURES = {
     "dcs_normalize93_check": [_P, _P],
     # pcm, fq, ci, n_streams, fmax, stream
     "dcs_encode94_analyze": [_P, _P, _P, _I, _I, _P],
+    # eight ints out (encode94_analyze_geometry's keys)
+    "dcs_encode94_analyze_geometry": [_P],
     # ci, hdr_scale, keep, tables (_check_encoder_tables' first five), thr,
     # dlim, cape,
     # sil_max, out15, out14, silent, n_streams, K, fmax, stream
@@ -634,6 +636,9 @@ def encode94_analyze(pcm, fq):
     _check("fq", fq, torch.int16, (256, 255), dev)
     if not (1 <= B < 65536 and F >= 1):
         raise ValueError(f"{B} streams of {F} frames")
+    # the kernel copies each tile's span of a row in 16-byte chunks
+    if pcm.data_ptr() % 16:
+        raise ValueError("pcm: not 16-byte aligned")
     ci = torch.empty((B, F, 255), dtype=torch.int32, device=dev)
     _launch("encode94_analyze", "dcs_encode94_analyze", dev, pcm.data_ptr(),
             fq.data_ptr(), ci.data_ptr(), B, F)
@@ -662,6 +667,22 @@ def encode94_decide(ci, sil_max, keep, thr, dlim, cape, hdr_scale, tabs):
             thr.data_ptr(), dlim.data_ptr(), cape.data_ptr(), int(sil_max),
             out15.data_ptr(), out14.data_ptr(), silent.data_ptr(), B, K, F)
     return out15, out14, silent
+
+
+def encode94_analyze_geometry(device):
+    """encode94_analyze's launch geometry on the card: a dict of its frames
+    and columns a block, threads a block, dynamic shared bytes, registers
+    and local (spilled) bytes a thread, resident blocks an SM and the
+    card's SMs.  Launches nothing."""
+    out = (ctypes.c_int * 8)()
+    fn = load().dcs_encode94_analyze_geometry
+    with torch.cuda.device(torch.device(device)):
+        err = fn(ctypes.cast(out, ctypes.c_void_p))
+    if err != 0:
+        raise RuntimeError(f"encode94_analyze_geometry: CUDA error {err}")
+    keys = ("tile_frames", "tile_cols", "threads", "shared_bytes",
+            "registers", "local_bytes", "blocks_per_sm", "sms")
+    return dict(zip(keys, list(out)))
 
 
 def encode94_decide_geometry(device):

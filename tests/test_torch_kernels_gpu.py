@@ -29,7 +29,9 @@ streams that cross it (so the halo frame is decoded), the closed-form
 normalize of its square root on all 2^32 inputs, the flat sweep and a
 served batch on the card against the CPU; for the 1994+ encoder, the
 three encoder kernels on random PCM and the adversarial full-scale set at
-frame counts around the 16-frame bucket and the kernels' tiles, random
+frame counts around the 16-frame bucket and the kernels' tiles (the
+analysis at 63, 64, 65, 129 and 272 frames, one stream and 64, two calls
+on reused memory, and a PCM view 2 bytes off its alignment), random
 header scale codes over 0..255 with every bands_keep from 1 to 16, one and
 three format slots with every wanted pattern, a band that wants code 15
 right after a silent frame, and a batch of 64 streams against the CPU and
@@ -974,6 +976,65 @@ def test_encode94_analyze_kernel_on_extreme_matrices(dev, matrix):
     got = kernels.encode94_analyze(pcm, fq)
     torch.cuda.synchronize()
     assert torch.equal(got, d94.analyze94_plain(pcm, fq))
+
+
+def _analyze_rows(B, L, seed):
+    """B int16 PCM rows of L samples: one random, the adversarial set, then
+    random rows (the first B of them)."""
+    rng = np.random.default_rng(seed)
+    return np.concatenate([rng.integers(-32768, 32768, size=(1, L)),
+                           _adversarial_pcm(L),
+                           rng.integers(-32768, 32768, size=(B, L))])[
+        :B].astype(np.int16)
+
+
+@pytest.mark.parametrize("B", [1, 64])
+@pytest.mark.parametrize("fmax", [63, 64, 65, 129, 272])
+def test_encode94_analyze_kernel_on_ragged_tiles(dev, fmax, B):
+    """Frame counts around the kernel's 64-frame tile (a last tile of 63,
+    64, 1 or 16 frames) and the encoder's Fmax, one stream and 64."""
+    fq = torch.tensor(enc.forward_matrix_q(), device=dev)
+    pcm = torch.tensor(_analyze_rows(B, fmax * 240 + 240, fmax + B),
+                       device=dev)
+    got = kernels.encode94_analyze(pcm, fq)
+    torch.cuda.synchronize()
+    assert torch.equal(got, d94.analyze94_plain(pcm, fq))
+
+
+def test_encode94_analyze_kernel_twice_on_reused_memory(dev):
+    """Two calls in a row, the second on the allocations the first left
+    (its coefficients and its PCM's block, holding other values)."""
+    fmax, B = 129, 16
+    fq = torch.tensor(enc.forward_matrix_q(), device=dev)
+    rows = _analyze_rows(B, fmax * 240 + 240, 5)
+    first = torch.tensor(rows[::-1].copy(), device=dev)
+    want_first = d94.analyze94_plain(first, fq)
+    got = kernels.encode94_analyze(first, fq)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want_first)
+    second = torch.tensor(rows, device=dev)
+    ptr = got.data_ptr()
+    del got
+    first.copy_(second)                               # same block, new PCM
+    got = kernels.encode94_analyze(first, fq)
+    torch.cuda.synchronize()
+    assert got.data_ptr() == ptr                      # the same block
+    assert torch.equal(got, d94.analyze94_plain(first, fq))
+
+
+def test_encode94_analyze_refuses_unaligned_pcm(dev):
+    """The kernel copies 16-byte chunks of each row: a contiguous view 2
+    bytes off raises, and nothing falls back."""
+    fmax, B = 17, 2
+    L = fmax * 240 + 240
+    fq = torch.tensor(enc.forward_matrix_q(), device=dev)
+    flat = torch.zeros(B * L + 8, dtype=torch.int16, device=dev)
+    pcm = flat[1:1 + B * L].view(B, L)
+    assert pcm.is_contiguous() and pcm.data_ptr() % 16 == 2
+    before = kernels.LAUNCHES["encode94_analyze"]
+    with pytest.raises(ValueError, match="aligned"):
+        kernels.encode94_analyze(pcm, fq)
+    assert kernels.LAUNCHES["encode94_analyze"] == before
 
 
 def _encoder_inputs(dev, K, fmax, seed, maxerr, codes=256, keep_all=False,

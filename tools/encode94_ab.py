@@ -1,6 +1,6 @@
-"""What tools/decide94_ab.py and tools/select94_ab.py share: the parallel
-nvcc build of a kernel's source variants, the card's name and power
-limit, the encoder chunk both time, and the device timer.
+"""What tools/analyze94_ab.py, decide94_ab.py and select94_ab.py share:
+the parallel nvcc build of a kernel's source variants, the card's name
+and power limit, the encoder chunk they time, and the device timer.
 
 A variant is (name, source.cu, extra nvcc flags), from the command line's
 NAME=SOURCE.cu[:NVCC_FLAGS].  Each builds into its own shared library
@@ -95,6 +95,17 @@ def chunks(dev):
         x["nf"] = torch.tensor(nf, device=dev)
         x["tabs"] = tabs
         yield label, x
+
+
+def first_pcm(dev):
+    """The first enc94_dev chunk's PCM as the analysis takes it (16 files,
+    int16 [16, 272*240 + 240]) and the analysis matrix, on dev."""
+    jobs, _ = chip_smoke.enc_jobs(16)
+    params = enc.CompressionParams()
+    slots = d94._select_formats(params)
+    _, _, pcm, _, _ = d94.prepare_chunk(jobs, params, slots)
+    return (torch.tensor(pcm, device=dev),
+            torch.tensor(enc.forward_matrix_q(), device=dev))
 
 
 def times(run):
