@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one GPU: the flat catalog sweeps
-and the ROM session paths of the 1994+ and the 1993 families, and the
-on-device 1994+ encoder (dcsexplorer_tpu_torch) end to end, through their
-hand-written kernels.
+(warm and cold, and the cold mixed-family catalog) and the ROM session
+paths of the 1994+ and the 1993 families, and the on-device 1994+ encoder
+(dcsexplorer_tpu_torch) end to end, through their hand-written kernels,
+with torch.profiler traces of three of those paths.
 
     python3 chip_smoke.py
 
@@ -105,9 +106,44 @@ non-zero):
      over the wall time, after one warm-up), with each chunk's host prep,
      upload, device time, fetch and emit, and the peak device memory of
      one chunk
-Then one JSON line of per-kernel results (launches: over all five paths,
-each path's own printed in phases 4, 7, 10, 11 and 13), and last the
-{"ok": true, ...} line.
+ 14. the cold 1994+ sweep at bench.py's flat94_e2e defaults (music_a/b.dcs94
+     and the four legacy .dcs94 streams x 24: 144 streams, 66,648 frames,
+     in 4 chunks) through coldsweep.cold_flat94: each call packs every
+     chunk anew (native index + trace + pack) while the one before uploads
+     (pinned buffers, a copy stream), then one FlatPipeline pass and one
+     checksum fetch.  One call with the counters at 0 (decode94_fb and
+     transform94_pcm must move; its PCM must equal, bit for bit, the plain
+     sweep of the same chunks concatenated and one warm FlatPipeline sweep
+     of the catalog packed whole, itself equal to the plain sweep), one
+     warm-up, 3 timed calls (each checksum the warm sweep's): x realtime
+     over the wall time, per chunk the host pack, the staging and enqueue
+     of the upload and the upload on the copy stream's clock, the device
+     time of the one dispatch and the fetch; the peak device memory of one
+     call.  In turn with those calls, the same call with a plain
+     synchronous upload (the yardstick of the side-stream upload).  And the
+     warm flat94 shape (the four legacy streams x 288) timed as phase 4
+ 15. the cold mixed catalog at bench.py's catalog_e2e defaults (those 144
+     1994+ streams, music_a.dcs93b + music_b.dcs93a x 12, dense_t1(b)
+     .dcs93a1 x 12) through coldsweep.cold_catalog, each family's decode
+     queued behind its upload while the host packs the next: the counters
+     of decode94_fb, transform94_pcm and decode93_pcm must move; the 93b
+     and 93a Type-1 warm sweeps must equal their plain sweeps bit for bit;
+     the total checksum must equal catalog_pipeline's on the same arrays
+     and the three families' warm sweeps' summed on the host, in every
+     call; x
+     realtime over 3 timed calls, per family the host ms (pack and bank
+     columns), frames, audio s, upload and device ms
+ 16. three torch.profiler traces (utils/profiling.device_trace, written to
+     build/torch_trace): a cold flat94_e2e call, a served session6 batch
+     (phase 9's SessionServer) and an enc94_dev chunk of 16 files (phase
+     13's path).  For each: the five kernels with the most device time,
+     the device's busy time (the union of kernel and copy intervals) and
+     idle share of the traced window, and the three longest idle gaps with
+     the host span (pack, upload, dispatch, fetch, trace, emit) over each,
+     and the host spans' totals; a trace with no CUDA kernel event raises
+Then the script's wall time, one JSON line of per-kernel results
+(launches: over all seven paths, each path's own printed in phases 4, 7,
+10, 11, 13, 14 and 15), and last the {"ok": true, ...} line.
 There is no CPU path: without a CUDA device the script exits 1.
 """
 
@@ -129,6 +165,10 @@ SESSIONS, SESSION_FRAMES, VOICES, SEG_E = 320, 1000, 6, 32   # bench.py session6
 COPIES93 = 72                  # x 2 streams: bench.py's dec93b and dec93a_t1
 REF_FRAMES = 250               # frames held against the scalar decoder
 ENC_FILES = 64                 # bench.py's enc94_dev: 64 files of 2.0 s
+LEGACY = ("sine_mix_1s", "noise_sweep", "tone_low", "chirpy")
+FLAT94_COPIES = 288            # x LEGACY: bench.py's flat94
+E2E_COPIES, E2E_CHUNKS = 24, 4  # bench.py's flat94_e2e and catalog_e2e
+CAT93_COPIES = 12              # bench.py's catalog_e2e 93b and 93a Type-1
 HBM_BYTES_PER_S = 3.35e12      # H100 SXM device memory
 INT32_OPS_PER_S = 33.5e12      # H100 SXM: 64 INT32 lanes/SM, 132 SMs, 1.98 GHz,
                                # a multiply-add counted as two
@@ -270,6 +310,7 @@ def _serve_timing(srv, n_batches, batch_audio_s):
 
 
 def main():
+    t_start = time.perf_counter()
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
@@ -280,6 +321,7 @@ def main():
     from dcsexplorer_tpu_torch.encoder import device94 as d94
     from dcsexplorer_tpu_torch.encoder import encoder as enc
     from dcsexplorer_tpu_torch.models import catalogsweep as cs
+    from dcsexplorer_tpu_torch.models import coldsweep as cold
     from dcsexplorer_tpu_torch.models import flatsweep as fs
     from dcsexplorer_tpu_torch.models import pipeline, romplay
     from dcsexplorer_tpu_torch.ops import band_decode as bd
@@ -288,6 +330,7 @@ def main():
     from dcsexplorer_tpu_torch.ops import transform as tf
     from dcsexplorer_tpu_torch.refdec import decoder as rd
     from dcsexplorer_tpu_torch.rom import zipload
+    from dcsexplorer_tpu_torch.utils import profiling
 
     dev = torch.device("cuda", 0)
 
@@ -776,7 +819,6 @@ def main():
     srv.decode_wire(wire, E)
     torch.cuda.synchronize()
     peak = torch.cuda.max_memory_allocated(dev)
-    srv.close()
     print(f"phase 9 sessions: device time of one batch {batch_ms:.4f} ms = "
           f"{session_audio_s / (batch_ms / 1e3):.1f}x realtime; spans (ms, "
           f"mean of 3) " + ", ".join(f"{k} {v:.4f}" for k, v in smean.items())
@@ -1466,6 +1508,246 @@ def main():
     for k in on_enc_path:
         results[k]["launches"] = e_launches[k]
 
+    # 14. the cold 1994+ sweep at bench.py's flat94_e2e defaults: the
+    # catalog packed anew in E2E_CHUNKS chunks each call
+    e2e = [_read(os.path.join(STREAMS, n))
+           for n in ("music_a.dcs94", "music_b.dcs94")
+           + tuple(f"{n}.dcs94" for n in LEGACY)]
+    cdev = cold.ColdDevice(dev)
+    t0 = time.perf_counter()
+    whole = fs.FlatSweep(e2e * E2E_COPIES).pack()
+    warm_args = fs.packed_to_device(whole.compact_host_arrays(), dev)
+    warm_pack_s = time.perf_counter() - t0
+    warm_pcm = pipe(**warm_args)
+    warm_chk = int(cs.checksum(warm_pcm))
+    e2e_audio_s = whole.audio_samples / fs.SAMPLE_RATE
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    r = cold.cold_flat94(e2e, E2E_COPIES, E2E_CHUNKS, cdev)
+    torch.cuda.synchronize()
+    c14 = dict(kernels.LAUNCHES)
+    if not all(c14[k] > 0 for k in on_path):
+        raise AssertionError(f"a kernel of the cold sweep did not launch: "
+                             f"{c14}")
+    if not torch.equal(r["pcm"], warm_pcm) or r["checksum"] != warm_chk:
+        raise AssertionError("the cold sweep's PCM != the warm sweep's")
+
+    def sync_cold():
+        """cold_flat94 with each chunk uploaded by a plain synchronous copy
+        (torch.tensor from pageable memory, no side stream): the yardstick
+        of ColdDevice's pinned side-stream upload.  Returns the checksum,
+        the PCM, the chunked FlatPipeline input and each chunk's upload ms
+        on the host's clock (the copy included)."""
+        chunks, up_ms = [], []
+        for cat in cold.split_copies(e2e, E2E_COPIES, E2E_CHUNKS):
+            ca = fs.FlatSweep(cat).pack().compact_host_arrays()
+            n_steps = ca.pop("n_steps")
+            t0 = time.perf_counter()
+            cols = {k: torch.tensor(cold._wire(v), device=dev)
+                    for k, v in ca.items()}
+            up_ms.append((time.perf_counter() - t0) * 1e3)
+            chunks.append(cold._widen94(cols, n_steps))
+        args = cold.concat_chunks(chunks)
+        pcm = cdev.pipe94(**args)
+        return int(cs.checksum(pcm)), pcm, args, up_ms
+
+    # the plain sweep on the chunked input itself and on the catalog
+    # packed whole: the kernels held at this path's shapes
+    sync_chk, sync_pcm, chunked, _ = sync_cold()
+    err = max(_max_abs_err(r["pcm"], plain_pipe(**chunked)),
+              _max_abs_err(warm_pcm, plain_pipe(**warm_args)))
+    if err != 0 or sync_chk != warm_chk or not torch.equal(sync_pcm,
+                                                           warm_pcm):
+        raise AssertionError(f"flat94_e2e: sweep != plain sweep ({err}), or "
+                             f"the synchronous upload's sweep differs")
+    del r, sync_pcm, chunked
+    cold.cold_flat94(e2e, E2E_COPIES, E2E_CHUNKS, cdev)      # warm-up
+    walls, runs, sync_walls, sync_up = [], [], [], []
+    for i in range(3):                  # the two uploads in turn, ABBA...
+        for kind in (("cold", "sync") if i % 2 == 0 else ("sync", "cold")):
+            t0 = time.perf_counter()
+            if kind == "sync":
+                chk, _, _, up = sync_cold()
+                sync_walls.append(time.perf_counter() - t0)
+                sync_up.append(up)
+                if chk != warm_chk:
+                    raise AssertionError(f"synchronous upload's checksum "
+                                         f"{chk} != {warm_chk}")
+                continue
+            r = cold.cold_flat94(e2e, E2E_COPIES, E2E_CHUNKS, cdev)
+            walls.append(time.perf_counter() - t0)
+            if r["checksum"] != warm_chk:
+                raise AssertionError(f"cold checksum {r['checksum']} != "
+                                     f"{warm_chk}")
+            del r["pcm"]
+            runs.append(r)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    cold.cold_flat94(e2e, E2E_COPIES, E2E_CHUNKS, cdev)
+    peak = torch.cuda.max_memory_allocated(dev)
+    fmt = lambda v: ", ".join(f"{x:.3f}" for x in v)
+    print(f"phase 14 cold flat94_e2e: {len(e2e) * E2E_COPIES} streams, "
+          f"{whole.n_frames_total} frames, {e2e_audio_s:.3f} s audio in "
+          f"{E2E_CHUNKS} chunks; launches "
+          f"{dict((k, c14[k]) for k in on_path)}; PCM bit-exact with the "
+          f"plain sweep of the chunked input and with one warm FlatPipeline "
+          f"sweep of the catalog packed whole (itself bit-exact with the "
+          f"plain sweep), checksum "
+          f"{warm_chk} in every call; "
+          f"{e2e_audio_s / (sum(walls) / 3):.1f}x realtime (wall "
+          f"{fmt(1e3 * w for w in walls)} ms over 3 calls after one "
+          f"warm-up; min {e2e_audio_s / min(walls):.1f}x); the warm pack "
+          f"of the whole catalog {warm_pack_s:.3f} s; peak memory of one "
+          f"call {peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB "
+          f"above what was resident)")
+    for i, r in enumerate(runs):
+        per = lambda key: fmt(c[key] for c in r["chunks"])
+        print(f"phase 14 call {i}: per chunk host pack {per('pack_ms')} ms, "
+              f"staging + enqueue of the upload {per('enqueue_ms')} ms, "
+              f"upload (copy stream) {per('upload_ms')} ms; one dispatch "
+              f"over all chunks: device {r['device_ms']:.3f} ms, fetch "
+              f"{r['fetch_ms']:.3f} ms")
+    print(f"phase 14 the same calls with a synchronous upload (torch.tensor "
+          f"from pageable memory, no side stream; timed in turn with the "
+          f"calls above): {e2e_audio_s / (sum(sync_walls) / 3):.1f}x "
+          f"realtime (wall {fmt(1e3 * w for w in sync_walls)} ms); upload "
+          f"per chunk, host clock: "
+          + "; ".join(fmt(u) for u in sync_up) + " ms")
+    # the warm flat94 shape (bench.py:699-701), timed as phase 4
+    legacy = [_read(os.path.join(STREAMS, f"{n}.dcs94")) for n in LEGACY]
+    t0 = time.perf_counter()
+    sw94 = fs.FlatSweep(legacy * FLAT94_COPIES).pack()
+    a94 = fs.packed_to_device(sw94.compact_host_arrays(), dev)
+    f94_pack_s = time.perf_counter() - t0
+    err = _max_abs_err(pipe(**a94), plain_pipe(**a94))
+    if err != 0:
+        raise AssertionError(f"flat94: sweep != plain sweep ({err})")
+    f94_audio_s = sw94.audio_samples / fs.SAMPLE_RATE
+    f94_ms = _device_ms(lambda: pipe(**a94), 5, torch)
+    enqueue = []
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pipe(**a94)
+        enqueue.append((time.perf_counter() - t0) * 1e3)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    pipe(**a94)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated(dev)
+    print(f"phase 14 warm flat94: {len(legacy) * FLAT94_COPIES} streams, "
+          f"{sw94.n_frames_total} frames, {f94_audio_s:.3f} s audio, "
+          f"n_steps {sw94.n_steps}; host pack + upload {f94_pack_s:.3f} s; "
+          f"PCM bit-exact with the plain sweep; device {f94_ms:.3f} ms = "
+          f"{f94_audio_s / (f94_ms / 1e3):.1f}x realtime; host enqueue "
+          f"{sum(enqueue) / 5:.4f} ms (min {min(enqueue):.4f}, max "
+          f"{max(enqueue):.4f}); peak memory of one sweep "
+          f"{peak / 2**30:.3f} GiB ({(peak - base) / 2**30:.3f} GiB above "
+          f"the resident inputs)")
+    del a94, sw94
+
+    # 15. the cold mixed catalog at bench.py's catalog_e2e defaults
+    cat94 = e2e * E2E_COPIES
+    cat93 = [_read(os.path.join(STREAMS, n))
+             for n in ("music_a.dcs93b", "music_b.dcs93a")] * CAT93_COPIES
+    cat93a = [_read(os.path.join(STREAMS, n))
+              for n in ("dense_t1.dcs93a1", "dense_t1b.dcs93a1")] \
+        * CAT93_COPIES
+    a93 = cs.packed93_to_device(
+        cs.Flat93Sweep(cat93, False).compact_host_arrays(), dev)
+    a93a = cs.packed93_to_device(
+        cs.Flat93Sweep(cat93a, True).compact_host_arrays(), dev)
+    fused = int(cs.catalog_pipeline(cdev.pipe94, cdev.pipe93, warm_args,
+                                    a93, a93a))
+    # the three families' warm sweeps, each bit-exact with its plain sweep
+    # (the 1994+ one in phase 14), their checksums summed on the host
+    warm = {"94": warm_pcm}
+    for k, a in (("93b", a93), ("93a1", a93a)):
+        warm[k] = pipe93(**a)
+        err = _max_abs_err(warm[k], plain93(**a))
+        if err != 0:
+            raise AssertionError(f"{k} x {CAT93_COPIES}: sweep != plain "
+                                 f"sweep ({err})")
+    warm = {k: int((v.cpu().numpy().astype(np.int64) & 0xFF).sum())
+            for k, v in warm.items()}
+    warm_sum = int(cs.wrap_int32(torch.tensor(sum(warm.values()))))
+    del a93, a93a, warm_pcm, warm_args
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    r = cold.cold_catalog(cat94, cat93, cat93a, cdev)
+    torch.cuda.synchronize()
+    c15 = dict(kernels.LAUNCHES)
+    on_cat_path = ("decode94_fb", "transform94_pcm", "decode93_pcm")
+    if not all(c15[k] > 0 for k in on_cat_path):
+        raise AssertionError(f"a kernel of the cold catalog did not launch: "
+                             f"{c15}")
+    wrapped = {k: int(cs.wrap_int32(torch.tensor(v))) for k, v in warm.items()}
+    if not (r["checksum"] == fused == warm_sum
+            and r["checksums"] == wrapped):
+        raise AssertionError(f"cold catalog checksum {r['checksum']} "
+                             f"{r['checksums']}, catalog_pipeline {fused}, "
+                             f"warm sweeps {warm_sum} {wrapped}")
+    walls, runs = [], []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        r = cold.cold_catalog(cat94, cat93, cat93a, cdev)
+        walls.append(time.perf_counter() - t0)
+        if r["checksum"] != fused:
+            raise AssertionError(f"cold catalog checksum {r['checksum']} != "
+                                 f"{fused}")
+        runs.append(r)
+    cat_audio_s = r["audio_samples"] / fs.SAMPLE_RATE
+    fams = ", ".join(f"{k} {f['frames']} frames, {f['audio_s']:.3f} s"
+                     for k, f in r["families"].items())
+    print(f"phase 15 cold catalog_e2e: 94 x {E2E_COPIES}, 93b x "
+          f"{CAT93_COPIES}, 93a Type-1 x {CAT93_COPIES} ({fams}); "
+          f"launches {dict((k, c15[k]) for k in on_cat_path)}; checksum "
+          f"{fused} equal to catalog_pipeline's and to the three warm "
+          f"sweeps' in every call; {cat_audio_s / (sum(walls) / 3):.1f}x "
+          f"realtime (wall {fmt(1e3 * w for w in walls)} ms over 3 calls "
+          f"after the first; min {cat_audio_s / min(walls):.1f}x)")
+    for i, r in enumerate(runs):
+        print(f"phase 15 call {i}: " + "; ".join(
+            f"{k} host {f['host_ms']:.3f} ms, upload (copy stream) "
+            f"{r['upload_ms'][k]:.3f} ms, device {r['device_ms'][k]:.3f} ms"
+            for k, f in r["families"].items())
+            + f"; fetch of the three checksums {r['fetch_ms']:.3f} ms")
+    for k, res in results.items():      # phase 14's launches and phase 15's
+        res["launches"] += c14[k] + c15[k]
+
+    # 16. torch.profiler traces (build/torch_trace): one cold flat94_e2e
+    # call, one served session6 batch (phase 9's server), one enc94_dev
+    # chunk (phase 13's path)
+    def summarize(label, run):
+        with profiling.device_trace() as prof:
+            run()
+            torch.cuda.synchronize()
+        s = profiling.trace_summary(prof.trace_file)
+        short = lambda n: n.replace("void ", "").replace(
+            "(anonymous namespace)::", "")[:80]
+        print(f"phase 16 trace of {label} ({prof.trace_file}): window "
+              f"{s['window_ms']:.3f} ms, device busy {s['busy_ms']:.3f} ms "
+              f"(kernels and copies), idle share {s['idle_share']:.4f}; "
+              f"kernels by device time: " + "; ".join(
+                  f"{short(n)} x{c} {ms:.4f} ms" for n, c, ms in s["kernels"])
+              + "; longest idle gaps: " + ", ".join(
+                  f"{ms:.3f} ms in {span}" for ms, span in s["gaps"])
+              + "; host spans (ms): " + ", ".join(
+                  f"{k} {v:.3f}" for k, v in s["spans"].items()))
+
+    summarize("a cold flat94_e2e call", lambda: cold.cold_flat94(
+        e2e, E2E_COPIES, E2E_CHUNKS, cdev))
+    summarize("a served session6 batch", lambda: srv.serve_one(
+        [session_events(SESSIONS * 9 + b) for b in range(SESSIONS)]))
+    srv.close()
+    summarize("an enc94_dev chunk", lambda: enc.encode_files_device(
+        jobs[:16], params))
+
+    print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

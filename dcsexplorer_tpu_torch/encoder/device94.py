@@ -39,6 +39,7 @@ import math
 import numpy as np
 import torch
 from torch import nn
+from torch.profiler import record_function
 
 from ..format import tables as T
 from ..models.flatsweep import _device
@@ -542,25 +543,28 @@ def _run(enc, x, nf, arrs, dev):
     """Launch the device program on a chunk's arrays; returns the packed
     rows on the host (a pinned buffer filled asynchronously, with the event
     that marks its arrival, on a card)."""
-    d = _to_device(dict(x=x, nf=nf, keep=arrs["keep"], thr=arrs["thr"],
-                        dlim=arrs["dlim"], cape=arrs["cape"],
-                        hdr_scale=arrs["hdr_scale"],
-                        wanted=arrs["wanted"]), dev)
-    packed = enc(d["x"], d["nf"], arrs["sil_max"], d["keep"], d["thr"],
-                 d["dlim"], d["cape"], d["hdr_scale"], d["wanted"])
-    if dev.type != "cuda":
-        return packed, None
-    host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
-    host.copy_(packed, non_blocking=True)
-    done = torch.cuda.Event()
-    done.record()
+    with record_function("upload"):
+        d = _to_device(dict(x=x, nf=nf, keep=arrs["keep"], thr=arrs["thr"],
+                            dlim=arrs["dlim"], cape=arrs["cape"],
+                            hdr_scale=arrs["hdr_scale"],
+                            wanted=arrs["wanted"]), dev)
+    with record_function("dispatch"):
+        packed = enc(d["x"], d["nf"], arrs["sil_max"], d["keep"], d["thr"],
+                     d["dlim"], d["cape"], d["hdr_scale"], d["wanted"])
+        if dev.type != "cuda":
+            return packed, None
+        host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
+        host.copy_(packed, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
     return host, done
 
 
 def _fetch(host, done):
-    if done is not None:
-        done.synchronize()
-    return host.numpy()
+    with record_function("fetch"):
+        if done is not None:
+            done.synchronize()
+        return host.numpy()
 
 
 def encode_batch(ci_list, params, device="cuda"):
@@ -587,25 +591,27 @@ def prepare_chunk(jobs, params, slots):
     """Host half of a chunk of (pcm, rate) jobs: int16 PCM, the host's own
     coefficients (for the emission) and setups, and the device inputs:
     (cis, setups, pcm [B, Fmax*240 + 240] int16, nf [B] int32, arrs)."""
-    cis, pcms = [], []
-    for pcm, rate in jobs:
-        p16 = enc_mod.pcm_to_int16(pcm, rate)
-        cis.append(enc_mod.analyze_frames_canonical(
-            enc_mod.frames_from_pcm_raw(p16)))
-        pcms.append(p16)
-    nf = np.asarray([c.shape[0] for c in cis], np.int32)
-    fmax = _bucket(int(nf.max()))
-    pcm_pad = np.zeros((len(jobs), fmax * FRAME + FRAME), np.int16)
-    for i, p16 in enumerate(pcms):
-        pcm_pad[i, :p16.size] = p16
-    setups, arrs = setup_compact(cis, params, slots)
-    return cis, setups, pcm_pad, nf, arrs
+    with record_function("pack"):
+        cis, pcms = [], []
+        for pcm, rate in jobs:
+            p16 = enc_mod.pcm_to_int16(pcm, rate)
+            cis.append(enc_mod.analyze_frames_canonical(
+                enc_mod.frames_from_pcm_raw(p16)))
+            pcms.append(p16)
+        nf = np.asarray([c.shape[0] for c in cis], np.int32)
+        fmax = _bucket(int(nf.max()))
+        pcm_pad = np.zeros((len(jobs), fmax * FRAME + FRAME), np.int16)
+        for i, p16 in enumerate(pcms):
+            pcm_pad[i, :p16.size] = p16
+        setups, arrs = setup_compact(cis, params, slots)
+        return cis, setups, pcm_pad, nf, arrs
 
 
 def emit_chunk(buf, cis, setups, slots):
     """The streams of a chunk from its packed rows: [(stream, n_frames)]."""
-    return [(_emit_from_packed(buf[i], cis[i], st, slots), st.n_frames)
-            for i, st in enumerate(setups)]
+    with record_function("emit"):
+        return [(_emit_from_packed(buf[i], cis[i], st, slots), st.n_frames)
+                for i, st in enumerate(setups)]
 
 
 def encode_jobs_pcm(jobs, params, device="cuda", chunk=None):

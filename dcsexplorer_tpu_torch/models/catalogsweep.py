@@ -18,10 +18,11 @@ with the device part as ``Flat93Pipeline`` (an ``nn.Module`` whose buffers
 are the codec tables of ``codec_tables93``).  On CUDA tensors the stage is
 a hand-written kernel (``ops/kernels.py``); on CPU tensors its plain
 PyTorch version runs.  The session bank of ``models/pipeline.py`` builds the
-same columns over a ROM's streams (``stream_columns``, ``rows93``).  The
-reference's mixed-family ``catalog_pipeline`` is not ported yet.  The entry
-points run on the card unless the caller names another device.  Bit-exact
-with the JAX reference and the scalar decoder.
+same columns over a ROM's streams (``stream_columns``, ``rows93``).
+``catalog_pipeline`` runs a mixed 94 + 93b + 93a-Type-1 catalog through
+both pipelines and sums the families' PCM checksums.  The entry points run
+on the card unless the caller names another device.  Bit-exact with the JAX
+reference and the scalar decoder.
 """
 
 import numpy as np
@@ -314,11 +315,10 @@ class Flat93Sweep:
         return out
 
 
-def packed93_to_device(arrays, device="cuda"):
+def columns93(arrays):
     """Flat93Sweep.compact_host_arrays() (numpy) -> Flat93Pipeline keyword
-    arguments on ``device`` (the card by default): the bank columns of
+    arguments as numpy, built on the host: the bank columns of
     ops/decode93.py (row f is frame f), mix and vol as int32."""
-    device = _device(device)
     t1 = "bits_u8" in arrays
     sid = np.asarray(arrays["sid"], np.int32)
     c = {"frame_word": arrays["frame_word"], "bit_rel": arrays["bit_rel"]}
@@ -333,8 +333,15 @@ def packed93_to_device(arrays, device="cuda"):
     out.update(pool_u8=arrays["pool_u8"], sid=sid, band_tab=band_tab,
                mix=np.asarray(arrays["mix_u16"], np.int32),
                vol=np.asarray(arrays["vol_u8"], np.int32))
-    return {k: torch.tensor(np.ascontiguousarray(v), device=device)
-            for k, v in out.items()}
+    return {k: np.ascontiguousarray(v) for k, v in out.items()}
+
+
+def packed93_to_device(arrays, device="cuda"):
+    """Flat93Sweep.compact_host_arrays() (numpy) -> Flat93Pipeline keyword
+    arguments on ``device`` (the card by default): columns93's, uploaded."""
+    device = _device(device)
+    return {k: torch.tensor(v, device=device)
+            for k, v in columns93(arrays).items()}
 
 
 class Flat93Pipeline(nn.Module):
@@ -365,3 +372,32 @@ def run_flat93(sweep, device="cuda"):
     pipe = Flat93Pipeline(device)
     return to_int16(pipe(**packed93_to_device(sweep.compact_host_arrays(),
                                               device)))
+
+
+def checksum(pcm):
+    """sum(pcm & 0xFF) as the JAX package's ``jnp.sum(pcm & 0xFF,
+    dtype=jnp.int32)`` computes it, wrapped to a signed int32: a 0-d int32
+    tensor on pcm's device.  torch sums int32 in int64, so the wrap is
+    explicit (66,648 frames x 240 x 255 exceed 2^31)."""
+    return wrap_int32((pcm & 0xFF).sum(dtype=torch.int64))
+
+
+def wrap_int32(x):
+    """An int64 tensor -> int32, modulo 2^32 into [-2^31, 2^31)."""
+    return (((x & 0xFFFFFFFF) ^ 0x80000000) - 0x80000000).to(torch.int32)
+
+
+def catalog_pipeline(pipe94, pipe93, args94, args93b, args93a):
+    """One pass over a mixed 94 + 93b + 93a-Type-1 catalog: ``pipe94`` (a
+    FlatPipeline) on the 1994+ tensors (packed_to_device's), ``pipe93`` (a
+    Flat93Pipeline) on the 93b and 93a-Type-1 tensors (packed93_to_device's);
+    any family may be None.  The caller builds the pipelines once (a
+    ColdDevice holds both).  Returns the families' checksums summed as the
+    JAX catalog_pipeline sums them, in int32 (a 0-d int32 tensor)."""
+    total = torch.zeros((), dtype=torch.int64)
+    runs = ((pipe94, args94), (pipe93, args93b), (pipe93, args93a))
+    for pipe, args in runs:
+        if args is not None:
+            pcm = pipe(**args)
+            total = total.to(pcm.device) + checksum(pcm)
+    return wrap_int32(total)

@@ -30,6 +30,7 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
+from torch.profiler import record_function
 
 from ..ops import kernels
 from ..refdec import decoder as rd
@@ -234,23 +235,24 @@ class SessionServer:
         if len(events_list) != self.n_sessions:
             raise ValueError(f"{len(events_list)} event dicts for "
                              f"{self.n_sessions} sessions")
-        S, C, T = self.n_sessions, self.n_ch, self.n_frames
-        while True:
-            E = self.seg_e
-            f0 = np.full((S, C, E), 0xFFFF, np.uint16)
-            base = np.zeros((S, C, E), np.uint16)
-            slope = np.zeros((S, C, E), np.uint8)
-            mixv = np.zeros((S, C, E), np.uint16)
-            vol = np.zeros((S, T), np.uint8)
-            ok = self._tracer.trace_segs_batch(
-                T, self._addr_tab, self._off_tab, f0, base, slope, mixv,
-                vol, events_list)
-            if ok:
-                return pack_controls_wire(
-                    dict(f0=f0, base=base, slope=slope, mixv=mixv), vol), E
-            if E >= kernels.MAX_SEGMENTS:
-                raise ValueError("a session lane exceeds 255 segments")
-            self.seg_e = min(kernels.MAX_SEGMENTS, 2 * E)
+        with record_function("trace"):
+            S, C, T = self.n_sessions, self.n_ch, self.n_frames
+            while True:
+                E = self.seg_e
+                f0 = np.full((S, C, E), 0xFFFF, np.uint16)
+                base = np.zeros((S, C, E), np.uint16)
+                slope = np.zeros((S, C, E), np.uint8)
+                mixv = np.zeros((S, C, E), np.uint16)
+                vol = np.zeros((S, T), np.uint8)
+                ok = self._tracer.trace_segs_batch(
+                    T, self._addr_tab, self._off_tab, f0, base, slope, mixv,
+                    vol, events_list)
+                if ok:
+                    return pack_controls_wire(
+                        dict(f0=f0, base=base, slope=slope, mixv=mixv), vol), E
+                if E >= kernels.MAX_SEGMENTS:
+                    raise ValueError("a session lane exceeds 255 segments")
+                self.seg_e = min(kernels.MAX_SEGMENTS, 2 * E)
 
     def decode_wire(self, wire, E):
         """The device half of one batch: the wire (uint8 tensor on the
@@ -271,13 +273,17 @@ class SessionServer:
         pinned; the result (150 MB at session6's size) comes back ~20x
         faster into pinned memory (chip_smoke.py phase 9)."""
         buf = torch.from_numpy(wire)
-        if self.device.type == "cpu":
-            return None, self.decode_wire(buf, E)
-        out = self.decode_wire(buf.to(self.device), E)
-        host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
-        host.copy_(out, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
+        if self.device.type != "cpu":
+            with record_function("upload"):
+                buf = buf.to(self.device)
+        with record_function("dispatch"):
+            out = self.decode_wire(buf, E)
+            if self.device.type == "cpu":
+                return None, out
+            host = torch.empty(out.shape, dtype=out.dtype, pin_memory=True)
+            host.copy_(out, non_blocking=True)
+            done = torch.cuda.Event()
+            done.record()
         return done, host
 
     # -- public surface -------------------------------------------------
@@ -309,7 +315,8 @@ class SessionServer:
                 flight.append(self._enqueue(*prep.popleft().result()))
             done, host = flight.popleft()
             if done is not None:
-                done.synchronize()
+                with record_function("fetch"):
+                    done.synchronize()
             refill()
             yield host.numpy()
 

@@ -1,0 +1,161 @@
+"""Profiling helpers of the PyTorch + CUDA port.
+
+Counterpart of ``dcsexplorer_tpu/utils/profiling.py``:
+- ``StageTimer``: named wall-clock stage accounting with a report table
+  (host code, copied as it is);
+- ``device_trace``: a context manager around ``torch.profiler.profile``
+  (CPU activity, and CUDA activity where a card is present) that writes a
+  Chrome trace into ``log_dir``;
+- ``force_result``: forces the work behind a value by fetching a device
+  checksum of its first tensor, and times that;
+- ``trace_summary``: reads such a trace: the kernels with the most device
+  time, the device's busy time (the union of kernel and copy intervals)
+  and idle share of the traced window, and the longest idle gaps with the
+  host span (a ``record_function`` range) that covers each.
+
+Nothing here touches CUDA when the module is imported.
+"""
+
+import contextlib
+import json
+import os
+import time
+from collections import defaultdict
+
+import torch
+
+
+class StageTimer:
+    def __init__(self):
+        self.totals = defaultdict(float)
+        self.counts = defaultdict(int)
+
+    @contextlib.contextmanager
+    def stage(self, name):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.totals[name] += time.perf_counter() - t0
+            self.counts[name] += 1
+
+    def report(self):
+        lines = ["stage                          total_ms   calls"]
+        for name in sorted(self.totals, key=self.totals.get, reverse=True):
+            lines.append(f"{name:<30} {self.totals[name]*1000:9.1f} "
+                         f"{self.counts[name]:7d}")
+        return "\n".join(lines)
+
+
+@contextlib.contextmanager
+def device_trace(log_dir="build/torch_trace"):
+    """Profile the body with ``torch.profiler`` and write its Chrome trace to
+    ``log_dir/trace_<pid>_<ns>.json``; yields the profiler, whose
+    ``trace_file`` names that file once the block has ended.  Host spans
+    of every thread are kept (a server's prep thread included)."""
+    from torch._C._profiler import _ExperimentalConfig
+    from torch.profiler import ProfilerActivity
+
+    activities = [ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(log_dir, exist_ok=True)
+    prof = torch.profiler.profile(
+        activities=activities,
+        experimental_config=_ExperimentalConfig(profile_all_threads=True))
+    with prof:
+        yield prof
+    prof.trace_file = os.path.join(
+        log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
+    prof.export_chrome_trace(prof.trace_file)
+
+
+def force_result(value):
+    """Force the work behind ``value`` (a tensor, or a list, tuple or dict
+    holding tensors): fetch the checksum ``(x.int() & 0xFF).sum()`` of its
+    first tensor.  Returns (value, seconds)."""
+    t0 = time.perf_counter()
+    leaves = _tensor_leaves(value)
+    if leaves:
+        (leaves[0].int() & 0xFF).sum().item()
+    return value, time.perf_counter() - t0
+
+
+def _tensor_leaves(value):
+    if isinstance(value, torch.Tensor):
+        return [value]
+    if isinstance(value, dict):
+        value = list(value.values())
+    if isinstance(value, (list, tuple)):
+        return [t for v in value for t in _tensor_leaves(v)]
+    return []
+
+
+# the Chrome trace's categories of device work
+_DEVICE_CATS = ("kernel", "gpu_memcpy", "gpu_memset")
+
+
+def _union(intervals):
+    """Sorted, merged [start, end) intervals."""
+    out = []
+    for a, b in sorted(intervals):
+        if out and a <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], b)
+        else:
+            out.append([a, b])
+    return out
+
+
+def trace_summary(trace_file, top=5, n_gaps=3):
+    """What a Chrome trace of ``device_trace`` says of the device, in ms:
+
+    - ``kernels``: the ``top`` kernels by total device time, as (name,
+      calls, total ms);
+    - ``window_ms``: the traced window, from the first event of any kind
+      to the end of the last;
+    - ``busy_ms``: the union of the kernel, copy and memset intervals;
+      ``idle_share``: 1 - busy / window;
+    - ``gaps``: the ``n_gaps`` longest idle stretches of the window, as
+      (ms, the host span that overlaps it most or None);
+    - ``spans``: the host spans' total ms by name.
+
+    Raises ValueError if the trace holds no kernel event: it is then no
+    trace of the device."""
+    with open(trace_file) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    kern = [e for e in events if e.get("cat") == "kernel"]
+    if not kern:
+        raise ValueError(f"{trace_file}: no CUDA kernel event")
+    per = defaultdict(lambda: [0, 0.0])
+    for e in kern:
+        per[e["name"]][0] += 1
+        per[e["name"]][1] += e["dur"] / 1e3
+    kernels = sorted(((n, c, ms) for n, (c, ms) in per.items()),
+                     key=lambda k: -k[2])[:top]
+    lo = min(e["ts"] for e in events)
+    hi = max(e["ts"] + e["dur"] for e in events)
+    busy = _union((e["ts"], e["ts"] + e["dur"]) for e in events
+                  if e.get("cat") in _DEVICE_CATS)
+    busy_us = sum(b - a for a, b in busy)
+    edges = [lo] + [x for iv in busy for x in iv] + [hi]
+    idle = [(a, b) for a, b in zip(edges[::2], edges[1::2]) if b > a]
+    spans = [(e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+             if e.get("cat") == "user_annotation"]
+
+    def cover(a, b):
+        best = max(spans, key=lambda s: min(b, s[1]) - max(a, s[0]),
+                   default=None)
+        if best is None or min(b, best[1]) <= max(a, best[0]):
+            return None
+        return best[2]
+
+    gaps = [((b - a) / 1e3, cover(a, b))
+            for a, b in sorted(idle, key=lambda g: g[0] - g[1])[:n_gaps]]
+    totals = defaultdict(float)
+    for a, b, name in spans:
+        totals[name] += (b - a) / 1e3
+    window = (hi - lo) / 1e3
+    return dict(kernels=kernels, window_ms=window, busy_ms=busy_us / 1e3,
+                idle_share=1 - busy_us / 1e3 / window, gaps=gaps,
+                spans=dict(totals))

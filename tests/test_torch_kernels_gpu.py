@@ -38,8 +38,11 @@ right after a silent frame, and a batch of 64 streams against the CPU and
 the native host search; and for the select kernels alone, random
 decisions under shipped and random pip/dep tables, frame counts 1..Fmax,
 Fmax from 16 to 528 (two rounds of the scan), B 1 and 64, decision bytes
-past 15, and two calls in a row on scratch memory left dirty.  Every comparison is bit for
-bit.  chip_smoke.py covers
+past 15, and two calls in a row on scratch memory left dirty; the cold
+sweeps (chunked uploads from pinned buffers on a copy stream, one
+ColdDevice over repeated calls) and catalog_pipeline against the CPU, and
+a torch.profiler trace of the flat sweep that holds its kernels.  Every
+comparison is bit for bit.  chip_smoke.py covers
 the real catalogs and the full-width session6 and session93a batches.
 """
 
@@ -54,6 +57,7 @@ from dcsexplorer_tpu_torch.encoder import core94 as c94
 from dcsexplorer_tpu_torch.encoder import device94 as d94
 from dcsexplorer_tpu_torch.encoder import encoder as enc
 from dcsexplorer_tpu_torch.models import catalogsweep as cs
+from dcsexplorer_tpu_torch.models import coldsweep as cold
 from dcsexplorer_tpu_torch.models import flatsweep as fs
 from dcsexplorer_tpu_torch.models import pipeline, romplay
 from dcsexplorer_tpu_torch.ops import band_decode as bd
@@ -62,6 +66,7 @@ from dcsexplorer_tpu_torch.ops import kernels
 from dcsexplorer_tpu_torch.ops import transform as tf
 from dcsexplorer_tpu_torch.refdec import decoder as rd
 from dcsexplorer_tpu_torch.rom import zipload
+from dcsexplorer_tpu_torch.utils import profiling
 
 pytestmark = pytest.mark.gpu
 
@@ -1369,3 +1374,60 @@ def test_encode94_select_parts_and_geometry(dev, encoders):
     geo = kernels.encode94_select_geometry(dev)
     assert geo["scan_blocks"] == 4 and geo["size_tile_frames"] == 32
     assert geo["scan_blocks_per_sm"] >= 1 and geo["size_blocks_per_sm"] >= 1
+
+
+COLD94 = ["tone_low.dcs94", "noise_sweep.dcs94"]
+
+
+def _assets(names):
+    return [open(os.path.join(ASSETS, n), "rb").read() for n in names]
+
+
+@pytest.mark.parametrize("n_chunks", [1, 3])
+def test_cold_flat94_on_the_card_equals_the_cpu(dev, n_chunks):
+    """Chunk pools of 30,774 bytes (not a multiple of 4), two calls on one
+    ColdDevice (pinned buffers and device memory handed out again)."""
+    streams = _assets(COLD94)
+    want = cold.cold_flat94(streams, 3, n_chunks, device="cpu")
+    cdev = cold.ColdDevice(dev)
+    for _ in range(2):
+        got = cold.cold_flat94(streams, 3, n_chunks, cdev)
+        assert torch.equal(got["pcm"].cpu(), want["pcm"])
+        assert got["checksum"] == want["checksum"]
+        assert all(c["upload_ms"] > 0 for c in got["chunks"])
+        assert got["device_ms"] > 0
+
+
+def test_cold_catalog_on_the_card_equals_the_cpu(dev):
+    cats = (_assets(COLD94) * 2, _assets(WIRES93[False]),
+            _assets(WIRES93[True]))
+    want = cold.cold_catalog(*cats, device="cpu")
+    before = kernels.LAUNCHES["decode93_pcm"]
+    got = cold.cold_catalog(*cats, device=dev)
+    assert kernels.LAUNCHES["decode93_pcm"] == before + 2
+    assert got["checksums"] == want["checksums"]
+    assert got["checksum"] == want["checksum"]
+    assert got["families"].keys() == want["families"].keys()
+    args = (fs.packed_to_device(fs.FlatSweep(cats[0]).pack()
+                                .compact_host_arrays(), dev),
+            cs.packed93_to_device(cs.Flat93Sweep(cats[1], False)
+                                  .compact_host_arrays(), dev),
+            cs.packed93_to_device(cs.Flat93Sweep(cats[2], True)
+                                  .compact_host_arrays(), dev))
+    assert int(cs.catalog_pipeline(fs.FlatPipeline(dev), cs.Flat93Pipeline(dev),
+                                   *args)) == want["checksum"]
+
+
+def test_device_trace_holds_the_kernels(dev, tmp_path):
+    sweep = fs.FlatSweep(_assets(COLD94)).pack()
+    args = fs.packed_to_device(sweep.compact_host_arrays(), dev)
+    pipe = fs.FlatPipeline(dev)
+    pipe(**args)
+    with profiling.device_trace(str(tmp_path)) as prof:
+        pipe(**args)
+        torch.cuda.synchronize()
+    s = profiling.trace_summary(prof.trace_file)
+    names = " ".join(n for n, _, _ in s["kernels"])
+    assert "decode94_fb" in names and "transform94_pcm" in names
+    assert 0 < s["busy_ms"] <= s["window_ms"]
+    assert 0 <= s["idle_share"] < 1
