@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one GPU: the flat catalog sweeps
 (warm and cold, and the cold mixed-family catalog) and the ROM session
-paths of the 1994+ and the 1993 families, and the on-device 1994+ encoder
-(dcsexplorer_tpu_torch) end to end, through their hand-written kernels,
-with torch.profiler traces of three of those paths.
+paths of the 1994+ and the 1993 families, the on-device 1994+ encoder, and
+the explorer CLI's decode commands (dcsexplorer_tpu_torch) end to end,
+through their hand-written kernels, with torch.profiler traces of three of
+those paths.
 
     python3 chip_smoke.py
 
@@ -141,15 +142,31 @@ non-zero):
      idle share of the traced window, and the three longest idle gaps with
      the host span (pack, upload, dispatch, fetch, trace, emit) over each,
      and the host spans' totals; a trace with no CUDA kernel event raises
+ 17. the explorer CLI (tools/explorer.py) on the card, in process through
+     main(argv) with the counters at 0, on session6.zip and session93a.zip:
+     --validate (session6 at the default --max-track-frames, 2,805 frames;
+     session93a at 300) must print Validation Succeeded; --extract-tracks
+     and --autoplay at the default cap; --extract-tracks at cap 300 on the
+     card and with --backend native (the scalar decoder), every WAV byte
+     for byte; each command's wall time beside the card's name and power
+     limit; the counters of decode94_bank, session_mix94,
+     transform94_pcm_carry and decode93_pcm_carry must move; torch.profiler
+     traces of session6 --extract-tracks and session93a --autoplay (as
+     phase 16: busy time, idle share, top kernels).  Then
+     python -m dcsexplorer_tpu_torch.tools.explorer session6.zip --validate
+     --max-track-frames 60 as a subprocess, with no --platform (the card)
 Then the script's wall time, one JSON line of per-kernel results
-(launches: over all seven paths, each path's own printed in phases 4, 7,
-10, 11, 13, 14 and 15), and last the {"ok": true, ...} line.
+(launches: over all eight paths, each path's own printed in phases 4, 7,
+10, 11, 13, 14, 15 and 17), and last the {"ok": true, ...} line.
 There is no CPU path: without a CUDA device the script exits 1.
 """
 
+import contextlib
 import glob
+import io
 import json
 import os
+import shutil
 import subprocess
 import sys
 import time
@@ -330,6 +347,7 @@ def main():
     from dcsexplorer_tpu_torch.ops import transform as tf
     from dcsexplorer_tpu_torch.refdec import decoder as rd
     from dcsexplorer_tpu_torch.rom import zipload
+    from dcsexplorer_tpu_torch.tools import explorer
     from dcsexplorer_tpu_torch.utils import profiling
 
     dev = torch.device("cuda", 0)
@@ -1722,14 +1740,14 @@ def main():
     # 16. torch.profiler traces (build/torch_trace): one cold flat94_e2e
     # call, one served session6 batch (phase 9's server), one enc94_dev
     # chunk (phase 13's path)
-    def summarize(label, run):
+    def summarize(label, run, phase=16):
         with profiling.device_trace() as prof:
             run()
             torch.cuda.synchronize()
         s = profiling.trace_summary(prof.trace_file)
         short = lambda n: n.replace("void ", "").replace(
             "(anonymous namespace)::", "")[:80]
-        print(f"phase 16 trace of {label} ({prof.trace_file}): window "
+        print(f"phase {phase} trace of {label} ({prof.trace_file}): window "
               f"{s['window_ms']:.3f} ms, device busy {s['busy_ms']:.3f} ms "
               f"(kernels and copies), idle share {s['idle_share']:.4f}; "
               f"kernels by device time: " + "; ".join(
@@ -1746,6 +1764,88 @@ def main():
     srv.close()
     summarize("an enc94_dev chunk", lambda: enc.encode_files_device(
         jobs[:16], params))
+
+    # 17. the explorer CLI on the card, in process through main(argv), as a
+    # user runs it; its WAVs under build/explorer_smoke
+    out_dir = os.path.join(HERE, "build", "explorer_smoke")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    os.makedirs(out_dir)
+
+    def cli(argv, want=None):
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(buf):
+            rc = explorer.main(argv)
+        wall = time.perf_counter() - t0
+        out = buf.getvalue()
+        if rc != 0 or (want is not None and want not in out):
+            raise AssertionError(f"explorer {' '.join(argv)}: rc {rc}\n{out}")
+        return wall, out
+
+    def wavs(prefix):
+        d, stem = os.path.split(prefix)
+        return {n[len(stem):]: _read(os.path.join(d, n))
+                for n in sorted(os.listdir(d))
+                if n.startswith(stem) and n.endswith(".wav")}
+
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    walls = {}
+    for rom, cap in ((SESSION6_ZIP, []),
+                     (SESSION93A_ZIP, ["--max-track-frames", "300"])):
+        name = os.path.basename(rom)[:-4]
+        p = os.path.join(out_dir, name + "_")
+        w, out = cli([rom, "--validate", *cap], "Validation Succeeded")
+        walls[name, "--validate" + (" " + " ".join(cap) if cap else "")] = w
+        compared = out.splitlines()[0]
+        walls[name, "--extract-tracks"], _ = cli(
+            [rom, "--extract-tracks", p + "t"])
+        walls[name, "--autoplay"], _ = cli([rom, "--autoplay", p + "a.wav"])
+        cap300 = ["--max-track-frames", "300"]
+        walls[name, "--extract-tracks (cap 300)"], _ = cli(
+            [rom, "--extract-tracks", p + "c", *cap300])
+        walls[name, "--extract-tracks --backend native (cap 300)"], _ = cli(
+            [rom, "--extract-tracks", p + "n", *cap300, "--backend", "native"])
+        card, native = wavs(p + "c"), wavs(p + "n")
+        if len(card) < 6 or card != native:
+            raise AssertionError(f"{name}: the card's WAVs ({sorted(card)}) "
+                                 f"!= --backend native's ({sorted(native)})")
+        print(f"phase 17 explorer {name}: --validate {compared.lower()}, "
+              f"Validation Succeeded; --extract-tracks at cap 300: "
+              f"{len(card)} WAVs byte-identical with --backend native")
+    c17 = dict(kernels.LAUNCHES)
+    on_cli_path = ("decode94_bank", "session_mix94", "transform94_pcm_carry",
+                   "decode93_pcm_carry")
+    if not all(c17[k] > 0 for k in on_cli_path):
+        raise AssertionError(f"a kernel of the explorer's path did not "
+                             f"launch: {c17}")
+    for k, res in results.items():
+        res["launches"] += c17[k]
+    # the card's share of a command: traces of two (their launches count
+    # nowhere), the wall time of each beside the trace's window
+    for rom, args in ((SESSION6_ZIP, ["--extract-tracks", "trace_t"]),
+                      (SESSION93A_ZIP, ["--autoplay", "trace_a.wav"])):
+        label = f"explorer {os.path.basename(rom)} {args[0]}"
+        t0 = time.perf_counter()
+        summarize(label, lambda: cli(
+            [rom, args[0], os.path.join(out_dir, args[1])]), phase=17)
+        print(f"phase 17 {label} traced: {time.perf_counter() - t0:.3f} s "
+              f"wall")
+    print(f"phase 17 explorer wall times ({smi.splitlines()[0]}): " + "; ".join(
+        f"{n} {c} {w:.3f} s" for (n, c), w in walls.items())
+        + f"; launches {c17}")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "dcsexplorer_tpu_torch.tools.explorer",
+         SESSION6_ZIP, "--validate", "--max-track-frames", "60"],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    if r.returncode != 0 or "Validation Succeeded" not in r.stdout:
+        raise AssertionError(f"python -m ...explorer --validate: rc "
+                             f"{r.returncode}\n{r.stdout}\n{r.stderr}")
+    print(f"phase 17 python -m dcsexplorer_tpu_torch.tools.explorer "
+          f"session6.zip --validate --max-track-frames 60 (no --platform: "
+          f"the card): rc 0, Validation Succeeded, "
+          f"{time.perf_counter() - t0:.3f} s with the interpreter's start")
 
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))

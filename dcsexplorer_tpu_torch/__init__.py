@@ -20,6 +20,10 @@ code it needs is its own copy, in the reference's layout.
                 and the format search on the device (``device94``:
                 ``DeviceEncoder94``, ``encode_batch``,
                 ``encode_files_device``).
+- ``tools``   — the explorer CLI (``python -m
+                dcsexplorer_tpu_torch.tools.explorer ROM.zip``).
 
 Values follow the reference's u16-in-int32 storage convention throughout.
 """
+
+__version__ = "0.1.0"

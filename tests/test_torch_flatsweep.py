@@ -145,6 +145,9 @@ from dcsexplorer_tpu_torch.rom import zipload
 rs, _ = zipload.load_zip_file("dcsexplorer_tpu_torch/data/session6.zip")
 with romplay.SessionServer(rs, 2, 8, n_ch=6, device="cpu") as srv:
     assert srv.serve_one([{0: [0, 1]}, {1: [0, 2]}]).shape == (2, 1920)
+from dcsexplorer_tpu_torch.tools import explorer
+assert explorer.main(["dcsexplorer_tpu_torch/data/session6.zip", "--validate",
+                      "--platform", "cpu", "--max-track-frames", "20"]) == 0
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "dcsexplorer_tpu"))
 assert not bad, bad
@@ -154,9 +157,9 @@ print(len(names))
 
 def test_port_never_imports_jax():
     # a fresh interpreter: this test process has jax and the JAX package
-    # loaded.  After the port, chip_smoke, a CPU sweep and a served CPU
-    # session batch, neither jax nor any module of dcsexplorer_tpu may be
-    # loaded.
+    # loaded.  After the port, chip_smoke, a CPU sweep, a served CPU
+    # session batch and the explorer's --validate on the CPU, neither jax
+    # nor any module of dcsexplorer_tpu may be loaded.
     paths, _ = _streams()
     r = subprocess.run([sys.executable, "-c", _NO_JAX, paths[0]], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
