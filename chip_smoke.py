@@ -1,8 +1,9 @@
 #!/usr/bin/env python3
 """Smoke run of the PyTorch + CUDA port on one GPU: the flat catalog sweeps
 (warm and cold, and the cold mixed-family catalog) and the ROM session
-paths of the 1994+ and the 1993 families, the on-device 1994+ encoder, and
-the explorer CLI's decode commands (dcsexplorer_tpu_torch) end to end,
+paths of the 1994+ and the 1993 families, the on-device 1994+ encoder,
+the explorer CLI's decode commands and the sharded paths over a mesh of
+one card's streams (dcsexplorer_tpu_torch) end to end,
 through their hand-written kernels, with torch.profiler traces of three of
 those paths.
 
@@ -155,9 +156,23 @@ non-zero):
      phase 16: busy time, idle share, top kernels).  Then
      python -m dcsexplorer_tpu_torch.tools.explorer session6.zip --validate
      --max-track-frames 60 as a subprocess, with no --platform (the card)
+ 18. the sharded paths (parallel/sweep.py) over a mesh of four entries of
+     this card, each shard on a side stream of its own (and over every
+     card where there are more), each driven with the counters at 0:
+     sharded_flat_sweep on flat94_music (decode94_fb and transform94_pcm 4
+     times each; PCM bit-exact with phase 4's), sharded_sessions on the
+     session6 batch (session_mix94, transform94_pcm) and on the session93a
+     batch (decode93_pcm), each bit-exact with its served batch, and
+     sharded_sweep of the padded model (models/batched.py: the four legacy
+     streams x 72, 288 streams padded to 261 frames) over (tracks 2 x
+     frames 2) against batch_decode on one device and its plain path;
+     each beside one shard (device time behind a device sleep, host time,
+     peak memory) and the flat sweep's layers (split + halo + upload, the
+     shards' kernels, the gather); graft_entry.entry() against the CPU and
+     graft_entry.dryrun_multichip(4)
 Then the script's wall time, one JSON line of per-kernel results
-(launches: over all eight paths, each path's own printed in phases 4, 7,
-10, 11, 13, 14, 15 and 17), and last the {"ok": true, ...} line.
+(launches: over all nine paths, each path's own printed in phases 4, 7,
+10, 11, 13, 14, 15, 17 and 18), and last the {"ok": true, ...} line.
 There is no CPU path: without a CUDA device the script exits 1.
 """
 
@@ -333,10 +348,11 @@ def main():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
     import numpy as np
-    from dcsexplorer_tpu_torch import native
+    from dcsexplorer_tpu_torch import graft_entry, native
     from dcsexplorer_tpu_torch.encoder import core94 as c94
     from dcsexplorer_tpu_torch.encoder import device94 as d94
     from dcsexplorer_tpu_torch.encoder import encoder as enc
+    from dcsexplorer_tpu_torch.models import batched
     from dcsexplorer_tpu_torch.models import catalogsweep as cs
     from dcsexplorer_tpu_torch.models import coldsweep as cold
     from dcsexplorer_tpu_torch.models import flatsweep as fs
@@ -345,6 +361,7 @@ def main():
     from dcsexplorer_tpu_torch.ops import decode93 as d93
     from dcsexplorer_tpu_torch.ops import kernels
     from dcsexplorer_tpu_torch.ops import transform as tf
+    from dcsexplorer_tpu_torch.parallel import sweep as psweep
     from dcsexplorer_tpu_torch.refdec import decoder as rd
     from dcsexplorer_tpu_torch.rom import zipload
     from dcsexplorer_tpu_torch.tools import explorer
@@ -563,6 +580,7 @@ def main():
     if not bool((pcm >= 0).all() & (pcm <= 0xFFFF).all()):
         raise AssertionError("sweep PCM outside u16 storage")
     del pcm_plain
+    flat_pcm = pcm                      # phase 18's reference
     sweep_ms = _device_ms(lambda: pipe(**args), 5, torch)
     # the host's side of one sweep: the time to enqueue it, with the card
     # idle at the start and no synchronise inside the timer
@@ -1846,6 +1864,198 @@ def main():
           f"session6.zip --validate --max-track-frames 60 (no --platform: "
           f"the card): rc 0, Validation Succeeded, "
           f"{time.perf_counter() - t0:.3f} s with the interpreter's start")
+
+    # 18. the sharded paths (parallel/sweep.py) over a mesh of four entries
+    # of this card, each on a side stream of its own (and over every card
+    # where there are more), each driven with the counters at 0 just
+    # before it and read just after
+    mesh4 = psweep.make_flat_mesh([dev] * 4)
+    meshes = {"cuda:0 x 4": mesh4}
+    if torch.cuda.device_count() > 1:
+        meshes[f"{torch.cuda.device_count()} cards"] = psweep.make_flat_mesh()
+    print(f"phase 18 {smi.splitlines()[0]}: meshes "
+          + "; ".join(f"{k} = {[str(d) for d in m]}"
+                      for k, m in meshes.items()))
+    c18 = {k: 0 for k in kernels.LAUNCHES}
+
+    def driven(fn, want_launches):
+        """fn() with the counters at 0; its launches must include
+        want_launches (name -> count); they add to the kernels line."""
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        out = fn()
+        torch.cuda.synchronize()
+        got = dict(kernels.LAUNCHES)
+        for k, n in want_launches.items():
+            if got[k] != n:
+                raise AssertionError(f"{k} launched {got[k]} times, not {n}:"
+                                     f" {got}")
+        for k in c18:
+            c18[k] += got[k]
+        return out, {k: v for k, v in got.items() if v}
+
+    def mesh_timing(fn):
+        """(device ms, host ms, host enqueue ms, peak GiB allocated, peak
+        GiB reserved) of one call, the peaks above the resident inputs:
+        device time queued behind a 1 s device sleep (each call stages its
+        columns into pinned memory on the host), host time to a
+        synchronise, enqueue time to the call's return.  The allocator
+        counts a block freed on a shard's stream as free before that
+        stream is done with it; the reserved peak holds it."""
+        dev_ms = _device_ms(fn, 3, torch, sleep_s=1.0)
+        host, enq = [], []
+        for _ in range(5):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            enq.append((time.perf_counter() - t0) * 1e3)
+            torch.cuda.synchronize()
+            host.append((time.perf_counter() - t0) * 1e3)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        base = torch.cuda.memory_allocated(dev)
+        base_r = torch.cuda.memory_reserved(dev)
+        fn()
+        torch.cuda.synchronize()
+        peak = (torch.cuda.max_memory_allocated(dev) - base) / 2**30
+        peak_r = (torch.cuda.max_memory_reserved(dev) - base_r) / 2**30
+        return (dev_ms, sum(host) / len(host), sum(enq) / len(enq), peak,
+                peak_r)
+
+    def timing_text(k, t, audio):
+        d, h, e, p, pr = t
+        return (f"{k}: device {d:.4f} ms = {audio / (d / 1e3):.1f}x "
+                f"realtime, host {h:.3f} ms (enqueue {e:.3f}), peak "
+                f"{p:.3f} GiB allocated, {pr:.3f} reserved")
+
+    # the flat94_music sweep, against phase 4's PCM
+    for name, m in meshes.items():
+        n = len(m)
+        pcm18, l18 = driven(lambda: psweep.sharded_flat_sweep(m, arrays),
+                            {"decode94_fb": n, "transform94_pcm": n})
+        err = _max_abs_err(pcm18, flat_pcm)
+        if err != 0 or pcm18.shape != flat_pcm.shape:
+            raise AssertionError(f"sharded flat sweep over {name} != phase "
+                                 f"4's PCM (max abs err {err})")
+        print(f"phase 18 sharded_flat_sweep over {name}: {n_frames} frames, "
+              f"PCM bit-exact with phase 4's, launches {l18}")
+    del pcm18
+    t_flat = {k: mesh_timing(lambda m=m: psweep.sharded_flat_sweep(m, arrays))
+              for k, m in (("1 shard", [dev]), ("4 shards", mesh4))}
+    # the layers of the 4-shard call: the host's split, halo and pinned
+    # staging (its enqueue time, above), the four shards' kernels on
+    # resident columns one after another, the gather
+    bounds = psweep.split(n_frames, 4)
+    shard_cols = []
+    for s_, e_ in bounds:
+        lo = max(0, s_ - psweep.FLAT_HALO)
+        part = {k: (v[lo:e_] if k in ("sid", "start_bit", "bt_u8", "mix_u16",
+                                      "vol_u8") else v)
+                for k, v in arrays.items()}
+        shard_cols.append(fs.packed_to_device(part, dev))
+    shards_ms = _device_ms(lambda: [pipe(**c) for c in shard_cols], 5, torch)
+    gather_out = torch.empty_like(flat_pcm)
+    gather_ms = _device_ms(lambda: gather_out.copy_(flat_pcm), 5, torch)
+    del shard_cols, gather_out
+    print(f"phase 18 sharded_flat_sweep timing ({smi.splitlines()[0]}): "
+          + "; ".join(timing_text(k, t, audio_s) for k, t in t_flat.items())
+          + f"; device layers of 4 shards: the shards' kernels on resident "
+          f"columns one after another {shards_ms:.4f} ms against one sweep's "
+          f"{sweep_ms:.4f} ms (phase 4), gather copy {gather_ms:.4f} ms")
+
+    # one session6 batch (phase 9's) and one session93a batch (phase 12's)
+    sess_times = {}
+    for name, b, wire_b, E_b, key, want_b in (
+            ("session6", bank, wire_np, E, "session_mix94",
+             pcm16.reshape(S, -1).cpu().numpy()),
+            ("session93a", bank93, wire_np93, E93, "decode93_pcm", got93)):
+        ctl = romplay.segments94(torch.tensor(wire_b, device=dev), S, T, C,
+                                 E_b)
+        rows_b, mix_b, vol_b = (ctl[0].reshape(S, T, C),
+                                ctl[1].reshape(S, T, C), ctl[2].reshape(S, T))
+        for mname, m in meshes.items():
+            out18, l18 = driven(
+                lambda: psweep.sharded_sessions(m, b, rows_b, mix_b, vol_b),
+                {key: len(m)})
+            got_b = pipeline.to_int16(out18).reshape(S, -1).cpu().numpy()
+            if not np.array_equal(got_b, want_b):
+                bad = np.argwhere(got_b != want_b)
+                raise AssertionError(f"sharded {name} sessions over {mname} "
+                                     f"!= the served batch at {bad.shape[0]} "
+                                     f"samples, first {bad[0]}")
+            print(f"phase 18 sharded_sessions {name} over {mname}: {S} "
+                  f"sessions x {T} frames x {C} voices bit-exact with the "
+                  f"served batch, launches {l18}")
+        sess_times[name] = {
+            k: mesh_timing(lambda m=m: psweep.sharded_sessions(
+                m, b, rows_b, mix_b, vol_b))
+            for k, m in (("1 group", [dev]), ("4 groups", mesh4))}
+        del ctl, rows_b, mix_b, vol_b, out18
+    print(f"phase 18 sharded_sessions timing ({smi.splitlines()[0]}): "
+          + "; ".join(timing_text(f"{name} {k}", t, session_audio_s)
+                      for name, tt in sess_times.items()
+                      for k, t in tt.items())
+          + f" (phase 9's batch: {batch_ms:.4f} ms, phase 12's "
+          f"{batch93_ms:.4f} ms, each with segments94)")
+
+    # the padded model: the four legacy streams x 72 over (tracks 2 x
+    # frames 2) of this card, against batch_decode on one device and its
+    # plain path
+    t0 = time.perf_counter()
+    padded = batched.SweepInputs(legacy * 72)
+    pad_pack_s = time.perf_counter() - t0
+    pargs = padded.args(dev)
+    single, l_one = driven(lambda: batched.batch_decode(*pargs),
+                           {"decode94_fb": 1, "transform94_pcm": 1})
+    mesh22 = psweep.make_mesh([dev] * 4, frame_shards=2)
+    got22, l22 = driven(lambda: psweep.sharded_sweep(mesh22, padded),
+                        {"decode94_fb": 4, "transform94_pcm": 4})
+    plain22 = batched.batch_decode(*pargs, plain=True)
+    Sp, Fp = padded.rel_start.shape
+    for label, a in (("sharded", got22), ("plain", plain22)):
+        err = _max_abs_err(a, single)
+        if err != 0 or a.shape != (Sp, Fp, 240):
+            raise AssertionError(f"padded model: {label} != batch_decode "
+                                 f"(max abs err {err})")
+    pad_audio_s = float(padded.n_frames.sum()) * 240 / fs.SAMPLE_RATE
+    # batch_decode's steps without its band-type check (a host sync)
+    one_ms = _device_ms(lambda: batched.padded_pcm(*pargs), 5, torch)
+    t22 = {k: mesh_timing(lambda m=m: psweep.sharded_sweep(m, padded))
+           for k, m in (("1 shard", [[dev]]), ("2 x 2", mesh22))}
+    print(f"phase 18 sharded_sweep ({smi.splitlines()[0]}): {Sp} streams x "
+          f"{Fp} frames ({int(padded.n_frames.sum())} real), host pack "
+          f"{pad_pack_s:.3f} s; (tracks 2 x frames 2) bit-exact with "
+          f"batch_decode on one device and with its plain path; launches "
+          f"one device {l_one}, sharded {l22}; batch_decode's steps on "
+          f"resident inputs {one_ms:.4f} ms = "
+          f"{pad_audio_s / (one_ms / 1e3):.1f}x realtime (real frames); "
+          f"sharded_sweep with its upload: "
+          + "; ".join(timing_text(k, t, pad_audio_s) for k, t in t22.items()))
+    del single, got22, plain22, pargs
+
+    # the entry points of graft_entry.py
+    step, ex = graft_entry.entry()
+    pcm_e, l_entry = driven(lambda: step(*ex),
+                            {"decode94_fb": 1, "transform94_pcm": 1})
+    cpu_step, cpu_ex = graft_entry.entry("cpu")
+    if not torch.equal(pcm_e.cpu(), cpu_step(*cpu_ex)) or not bool(
+            ((pcm_e >= 0) & (pcm_e <= 0xFFFF)).all()):
+        raise AssertionError("graft_entry.entry() on the card != on the CPU")
+    # the flat sweep (4 shards + one device) and the padded model (2 x 2 +
+    # one device) each launch decode94_fb and transform94_pcm 5 times; the
+    # sessions build their bank, decode one session with its carry and
+    # shard 2 sessions
+    mesh_d, l_dry = driven(lambda: graft_entry.dryrun_multichip(4),
+                           {"decode94_fb": 10, "transform94_pcm": 12,
+                            "decode94_bank": 1, "session_mix94": 3,
+                            "transform94_pcm_carry": 1})
+    print(f"phase 18 graft_entry: entry() {tuple(pcm_e.shape)} on the card "
+          f"bit-exact with the CPU, launches {l_entry}; dryrun_multichip(4) "
+          f"over {[str(d) for d in mesh_d]}: three sharded paths bit-exact "
+          f"with one device, launches {l_dry}")
+    for k, r in results.items():
+        r["launches"] += c18[k]
 
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))

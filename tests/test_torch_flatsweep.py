@@ -134,6 +134,8 @@ names = [m.name for m in pkgutil.walk_packages(dcsexplorer_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+import torch
+torch.set_num_threads(1)    # beside other test workers, one thread is faster
 from dcsexplorer_tpu_torch.models import flatsweep as fs
 sw = fs.FlatSweep([open(sys.argv[1], "rb").read()]).pack()
 pcm = fs.FlatPipeline("cpu")(**fs.packed_to_device(sw.compact_host_arrays(),
@@ -148,6 +150,12 @@ with romplay.SessionServer(rs, 2, 8, n_ch=6, device="cpu") as srv:
 from dcsexplorer_tpu_torch.tools import explorer
 assert explorer.main(["dcsexplorer_tpu_torch/data/session6.zip", "--validate",
                       "--platform", "cpu", "--max-track-frames", "20"]) == 0
+from dcsexplorer_tpu_torch import graft_entry
+from dcsexplorer_tpu_torch.models import batched
+from dcsexplorer_tpu_torch.parallel import sweep
+assert {"dcsexplorer_tpu_torch.graft_entry", "dcsexplorer_tpu_torch.models.batched",
+        "dcsexplorer_tpu_torch.parallel.sweep"} <= set(names)
+assert len(graft_entry.dryrun_multichip(2, "cpu")) == 2
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "dcsexplorer_tpu"))
 assert not bad, bad
@@ -158,13 +166,14 @@ print(len(names))
 def test_port_never_imports_jax():
     # a fresh interpreter: this test process has jax and the JAX package
     # loaded.  After the port, chip_smoke, a CPU sweep, a served CPU
-    # session batch and the explorer's --validate on the CPU, neither jax
+    # session batch, the explorer's --validate on the CPU and the sharded
+    # paths (dryrun_multichip on a mesh of two CPU entries), neither jax
     # nor any module of dcsexplorer_tpu may be loaded.
     paths, _ = _streams()
     r = subprocess.run([sys.executable, "-c", _NO_JAX, paths[0]], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 28      # every port module imported
+    assert int(r.stdout.split()[-1]) >= 51      # every port module imported
 
 
 # the JAX package named as a module: "dcsexplorer_tpu." or an import of it,

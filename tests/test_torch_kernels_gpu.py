@@ -40,8 +40,12 @@ decisions under shipped and random pip/dep tables, frame counts 1..Fmax,
 Fmax from 16 to 528 (two rounds of the scan), B 1 and 64, decision bytes
 past 15, and two calls in a row on scratch memory left dirty; the cold
 sweeps (chunked uploads from pinned buffers on a copy stream, one
-ColdDevice over repeated calls) and catalog_pipeline against the CPU, and
-a torch.profiler trace of the flat sweep that holds its kernels.  Every
+ColdDevice over repeated calls) and catalog_pipeline against the CPU,
+a torch.profiler trace of the flat sweep that holds its kernels, and the
+sharded paths over four side streams of one card (["cuda:0"] * 4, inputs
+made on the current stream just before the call): the flat sweep, the
+1994+ and 1993 sessions and the padded model's 2-D sweep against one
+device, the plain path and the CPU, with four launches of each kernel.  Every
 comparison is bit for bit.  chip_smoke.py covers
 the real catalogs and the full-width session6 and session93a batches.
 """
@@ -53,9 +57,11 @@ import numpy as np
 import pytest
 import torch
 
+from dcsexplorer_tpu_torch import graft_entry
 from dcsexplorer_tpu_torch.encoder import core94 as c94
 from dcsexplorer_tpu_torch.encoder import device94 as d94
 from dcsexplorer_tpu_torch.encoder import encoder as enc
+from dcsexplorer_tpu_torch.models import batched
 from dcsexplorer_tpu_torch.models import catalogsweep as cs
 from dcsexplorer_tpu_torch.models import coldsweep as cold
 from dcsexplorer_tpu_torch.models import flatsweep as fs
@@ -64,6 +70,7 @@ from dcsexplorer_tpu_torch.ops import band_decode as bd
 from dcsexplorer_tpu_torch.ops import decode93 as d93
 from dcsexplorer_tpu_torch.ops import kernels
 from dcsexplorer_tpu_torch.ops import transform as tf
+from dcsexplorer_tpu_torch.parallel import sweep
 from dcsexplorer_tpu_torch.refdec import decoder as rd
 from dcsexplorer_tpu_torch.rom import zipload
 from dcsexplorer_tpu_torch.utils import profiling
@@ -1431,3 +1438,93 @@ def test_device_trace_holds_the_kernels(dev, tmp_path):
     assert "decode94_fb" in names and "transform94_pcm" in names
     assert 0 < s["busy_ms"] <= s["window_ms"]
     assert 0 <= s["idle_share"] < 1
+
+
+# -- the sharded paths (parallel/sweep.py) on one card -------------------------
+
+CARD4 = ["cuda:0"] * 4
+
+
+def _launched(before):
+    return {k: v - before[k] for k, v in kernels.LAUNCHES.items()
+            if v != before[k]}
+
+
+def test_sharded_flat_sweep_on_the_card_equals_the_cpu(dev):
+    # four side streams of one card; an input made on the current stream
+    # just before the call (the shards' streams must wait for it)
+    streams = [open(p, "rb").read()
+               for p in sorted(glob.glob(os.path.join(ASSETS, "*.dcs94")))]
+    arrays = fs.FlatSweep(streams * 3).pack().compact_host_arrays()
+    want = fs.FlatPipeline("cpu")(**fs.packed_to_device(arrays, "cpu"))
+    single = fs.FlatPipeline(dev)(**fs.packed_to_device(arrays, dev))
+    before = dict(kernels.LAUNCHES)
+    got = sweep.sharded_flat_sweep(sweep.make_flat_mesh(CARD4), arrays)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"decode94_fb": 4, "transform94_pcm": 4}
+    assert got.device == dev
+    assert torch.equal(got, single)
+    assert torch.equal(got.cpu(), want)
+    # repeated calls reuse the cached pipeline and stay exact
+    for _ in range(3):
+        assert torch.equal(sweep.sharded_flat_sweep(CARD4, arrays), single)
+
+
+def test_sharded_sessions_on_the_card_equal_one_decoder(dev, rom93):
+    rs, _ = zipload.load_zip_file(SESSION6_ZIP)
+    rs.check()
+    for rs_k, bank, key in ((rs, romplay.build_rom_bank(rs, dev),
+                             "session_mix94"), (*rom93, "decode93_pcm")):
+        S, T, C = 7, 120, 6
+        with romplay.SessionServer(rs_k, S, T, n_ch=C, bank=bank) as srv:
+            wire, E = srv.prepare(
+                [{(b * 7 + t * 3) % 40: [0x00, t] for t in range(1, 7)}
+                 for b in range(S)])
+            want = srv.serve_one([{(b * 7 + t * 3) % 40: [0x00, t]
+                                   for t in range(1, 7)} for b in range(S)])
+        # the controls made on the card's current stream just before
+        rows, mix, vol = romplay.segments94(torch.tensor(wire, device=dev),
+                                            S, T, C, E)
+        before = dict(kernels.LAUNCHES)
+        got = sweep.sharded_sessions(CARD4, bank, rows.reshape(S, T, C),
+                                     mix.reshape(S, T, C),
+                                     vol.reshape(S, T))
+        torch.cuda.synchronize()
+        assert _launched(before)[key] == 4
+        assert np.array_equal(pipeline.to_int16(got).reshape(S, -1).cpu()
+                              .numpy(), want)
+        assert np.abs(want).max() > 0
+
+
+def test_sharded_sweep_on_the_card_equals_the_plain_path(dev):
+    legacy = [open(os.path.join(ASSETS, f"{n}.dcs94"), "rb").read()
+              for n in ("chirpy", "noise_sweep", "sine_mix_1s", "tone_low")]
+    inputs = batched.SweepInputs(legacy * 3)
+    args = inputs.args(dev)
+    single = batched.batch_decode(*args)
+    plain = batched.batch_decode(*args, plain=True)
+    cpu = batched.batch_decode(*inputs.args("cpu"))
+    before = dict(kernels.LAUNCHES)
+    got = sweep.sharded_sweep(sweep.make_mesh(CARD4, frame_shards=2), inputs)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"decode94_fb": 4, "transform94_pcm": 4}
+    assert torch.equal(single, plain)
+    assert torch.equal(single.cpu(), cpu)
+    assert torch.equal(got, single)
+    # a chunk with a carried overlap, on the card
+    sb, rs, hd, fmt, sub, bt, btp, mix, vol, n_steps = args
+    ov0 = torch.randint(0, 1 << 16, (16,), dtype=torch.int32, device=dev)
+    chunk = (sb[3], rs[3, 40:97], hd[3], fmt, sub, bt[3, 40:97],
+             btp[3, 40:97], mix[3, 40:97], vol[3, 40:97], ov0, n_steps)
+    pcm, last = batched.stream_decode(*chunk)
+    want, want_last = batched.stream_decode(*chunk, plain=True)
+    assert torch.equal(pcm, want) and torch.equal(last, want_last)
+
+
+def test_graft_entry_on_the_card(dev):
+    step, args = graft_entry.entry()
+    assert all(a.device == dev for a in args)
+    pcm = step(*args)
+    cpu_step, cpu_args = graft_entry.entry("cpu")
+    assert torch.equal(pcm.cpu(), cpu_step(*cpu_args))
+    assert graft_entry.dryrun_multichip(4) == [dev] * 4
