@@ -2,8 +2,9 @@
 """Smoke run of the PyTorch + CUDA port on one GPU: the flat catalog sweeps
 (warm and cold, and the cold mixed-family catalog) and the ROM session
 paths of the 1994+ and the 1993 families, the on-device 1994+ encoder,
-the explorer CLI's decode commands and the sharded paths over a mesh of
-one card's streams (dcsexplorer_tpu_torch) end to end,
+the explorer CLI's decode commands, the sharded paths over a mesh of
+one card's streams and the host-decode hybrid (dcsexplorer_tpu_torch) end
+to end,
 through their hand-written kernels, with torch.profiler traces of three of
 those paths.
 
@@ -170,9 +171,25 @@ non-zero):
      peak memory) and the flat sweep's layers (split + halo + upload, the
      shards' kernels, the gather); graft_entry.entry() against the CPU and
      graft_entry.dryrun_multichip(4)
+ 19. the host-decode hybrid (models/batched.py) at flat94_music (phase 2's
+     288 streams x 1,042 frames): the native dense decode on a thread pool
+     (native.decode_dense_batch) and the pack into [288, 1042, 256] slot
+     arrays at the native widths, each timed on the host (3 calls after a
+     warm-up); hybrid_batch_device with the counters at 0 (exactly one
+     dequant_mix_dense and one transform94_pcm), its PCM bit-exact with
+     phase 4's flat sweep fed the same mix and volume; the upload of the
+     slots (pinned staging on the host's clock, the copies on the card's);
+     dequant_mix_dense against its plain version on this run's slots and
+     on random slots with duplicate and out-of-range indices, with and
+     without fb_prev / active, timed beside its bound as in phase 3;
+     transform94_pcm's span; the device stage on resident slots (x
+     realtime, peak memory); the whole call from the stream bytes to int16
+     PCM on the host (x realtime) beside cold_flat94 of the same catalog;
+     the six .dcs94 assets through the hybrid (one launch of each kernel)
+     against phase 5's ReferenceDecoder PCM
 Then the script's wall time, one JSON line of per-kernel results
-(launches: over all nine paths, each path's own printed in phases 4, 7,
-10, 11, 13, 14, 15, 17 and 18), and last the {"ok": true, ...} line.
+(launches: over all ten paths, each path's own printed in phases 4, 7,
+10, 11, 13, 14, 15, 17, 18 and 19), and last the {"ok": true, ...} line.
 There is no CPU path: without a CUDA device the script exits 1.
 """
 
@@ -457,6 +474,8 @@ def main():
                           "dcsexplorer_tpu/models/pipeline.py:308"),
         "transform94_pcm_carry": ("transform94_pcm.cu",
                                   "dcsexplorer_tpu/ops/transform.py:352"),
+        "dequant_mix_dense": ("dequant_mix_dense.cu",
+                              "dcsexplorer_tpu/ops/band_decode.py:445"),
         "encode94_analyze": ("encode94_analyze.cu",
                              "dcsexplorer_tpu/encoder/device94.py:354"),
         "encode94_decide": ("encode94_decide.cu",
@@ -619,9 +638,10 @@ def main():
                                                  dev)))
     t0 = time.perf_counter()
     pos = 0
+    ref94 = {}                          # asset -> the scalar decoder's PCM
     for p, s in zip(paths, streams):
         nf = (s[0] << 8) | s[1]
-        want = fs.reference_pcm(s, nf)
+        want = ref94[p] = fs.reference_pcm(s, nf)
         seg = got[pos:pos + nf * 240]
         if not np.array_equal(want, seg):
             bad = np.nonzero(want != seg)[0]
@@ -1824,10 +1844,10 @@ def main():
             [rom, "--extract-tracks", p + "c", *cap300])
         walls[name, "--extract-tracks --backend native (cap 300)"], _ = cli(
             [rom, "--extract-tracks", p + "n", *cap300, "--backend", "native"])
-        card, native = wavs(p + "c"), wavs(p + "n")
-        if len(card) < 6 or card != native:
+        card, scalar = wavs(p + "c"), wavs(p + "n")
+        if len(card) < 6 or card != scalar:
             raise AssertionError(f"{name}: the card's WAVs ({sorted(card)}) "
-                                 f"!= --backend native's ({sorted(native)})")
+                                 f"!= --backend native's ({sorted(scalar)})")
         print(f"phase 17 explorer {name}: --validate {compared.lower()}, "
               f"Validation Succeeded; --extract-tracks at cap 300: "
               f"{len(card)} WAVs byte-identical with --backend native")
@@ -2056,6 +2076,212 @@ def main():
           f"with one device, launches {l_dry}")
     for k, r in results.items():
         r["launches"] += c18[k]
+
+    # 19. the host-decode hybrid (models/batched.py hybrid_*) at
+    # flat94_music: the native dense decode on the host, the dense slots
+    # uploaded whole, one dequant_mix_dense and one transform94_pcm
+    t19 = time.perf_counter()
+    catalog = music * COPIES
+
+    def host_ms(fn):
+        """(fn()'s result, its host ms in 3 calls after a warm-up)."""
+        fn()
+        ms = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            out = fn()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        return out, ms
+
+    decoded, decode_ms = host_ms(lambda: native.decode_dense_batch(catalog))
+    host19, pack_ms = host_ms(lambda: batched.pack_dense(decoded))
+    del decoded
+    S19, F19 = host19[0].shape[:2]
+    if S19 * F19 != n_frames or set(host19[4]) != {F19}:
+        raise AssertionError(f"hybrid pack: {S19} x {F19} for {n_frames} "
+                             f"frames, frame counts {set(host19[4])}")
+    # phase 4's mix and volume columns, one row a stream
+    mix19 = torch.tensor(arrays["mix_u16"].astype(np.int32),
+                         device=dev).reshape(S19, F19)
+    vol19 = torch.tensor(arrays["vol_u8"], device=dev).reshape(S19, F19)
+    up_bytes = sum(a.nbytes for a in host19[:4])
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    pcm19 = batched.hybrid_batch_device(*host19[:4], mix19, vol19)
+    torch.cuda.synchronize()
+    c19 = dict(kernels.LAUNCHES)
+    want19 = {"dequant_mix_dense": 1, "transform94_pcm": 1}
+    if {k: v for k, v in c19.items() if v} != want19:
+        raise AssertionError(f"hybrid batch launches {c19}, not {want19}")
+    err = _max_abs_err(pcm19.reshape(-1, 240), flat_pcm, words=True)
+    if err != 0 or pcm19.shape != (S19, F19, 240):
+        raise AssertionError(f"hybrid flat94_music PCM != phase 4's flat "
+                             f"sweep (max abs err {err})")
+    del pcm19
+    # the upload: staging into pinned memory (host clock), the copies
+    # (device clock), 3 after a warm-up
+    stage_ms, copy_ms = [], []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pinned = [torch.from_numpy(a).pin_memory() for a in host19[:4]]
+        st = (time.perf_counter() - t0) * 1e3
+        start = torch.cuda.Event(enable_timing=True)
+        stop = torch.cuda.Event(enable_timing=True)
+        start.record()
+        on_card = [t.to(dev, non_blocking=True) for t in pinned]
+        stop.record()
+        torch.cuda.synchronize()
+        if i:
+            stage_ms.append(st)
+            copy_ms.append(start.elapsed_time(stop))
+    del pinned
+    d19, s19, i19, v19 = (t.reshape(S19 * F19, -1) for t in on_card)
+    m19, vs19 = mix19.reshape(-1), vol19.reshape(-1).int()
+    n_valid = int(v19.sum())
+    # the kernel against its plain version on this run's slots: the
+    # function needs 256 valid flags and the mix a frame, 4 + 4 + 2 bytes
+    # of each valid slot, and writes 512 words a frame; ~8 integer
+    # operations a valid slot (scale, mix multiply-add, shift, the
+    # shared-memory add)
+    fb19 = check("dequant_mix_dense",
+                 lambda: bd.dequant_mix_dense_plain(d19, (s19, i19, v19),
+                                                    m19),
+                 lambda: kernels.dequant_mix_dense(d19, s19, i19, v19, m19),
+                 3, 10, n_frames * (256 + 4 + 512 * 4) + 10 * n_valid,
+                 8 * n_valid,
+                 phase=19, words=True)
+    sid19 = torch.arange(S19, dtype=torch.int32,
+                         device=dev).repeat_interleave(F19)
+    tabs19 = batched._tables(dev)
+    tr19_ms = _device_ms(lambda: kernels.transform94_pcm(fb19, vs19, sid19,
+                                                         tabs19), 10, torch)
+    del fb19
+    # random slots: duplicate indices, indices outside 0..511, prior
+    # words over 32 bits, with and without fb_prev and active
+    rng = np.random.default_rng(19)
+    nr = 50_000
+    ix = rng.integers(-40, 560, (nr, 256)).astype(np.int16)
+    ix[:, :64] = rng.integers(0, 8, (nr, 64))
+    rnd = [torch.tensor(a, device=dev) for a in (
+        rng.integers(-70000, 70000, (nr, 256)).astype(np.int32),
+        rng.integers(-70000, 70000, (nr, 256)).astype(np.int32), ix,
+        (rng.random((nr, 256)) < 0.6).astype(np.uint8),
+        rng.integers(0, 1 << 16, nr).astype(np.int32),
+        rng.integers(-(1 << 31), 1 << 31, (nr, 512),
+                     dtype=np.int64).astype(np.int32),
+        rng.random(nr) < 0.7)]
+    for prev_r in (None, rnd[5]):
+        for act_r in (None, rnd[6]):
+            w = bd.dequant_mix_dense_plain(rnd[0], rnd[1:4], rnd[4], prev_r,
+                                           act_r)
+            g = kernels.dequant_mix_dense(*rnd[:5], prev_r, act_r)
+            torch.cuda.synchronize()
+            if not torch.equal(w, g):
+                raise AssertionError(
+                    f"dequant_mix_dense on random slots (fb_prev "
+                    f"{prev_r is not None}, active {act_r is not None}): "
+                    f"max abs err {_max_abs_err(w, g, words=True)}")
+    del rnd, w, g
+    # the device stage on resident slots, behind a device sleep, and its
+    # peak memory above them
+    stage19_ms = _device_ms(lambda: batched.hybrid_batch_device(
+        *on_card, mix19, vol19), 3, torch)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    batched.hybrid_batch_device(*on_card, mix19, vol19)
+    torch.cuda.synchronize()
+    peak19 = torch.cuda.max_memory_allocated(dev) - base
+    del on_card, d19, s19, i19, v19
+
+    # the whole call from the stream bytes to int16 PCM on the host (the
+    # mix and volume columns given: phase 2's trace), beside the cold
+    # flat sweep of the same catalog
+    def whole():
+        h = batched.hybrid_host_stage(catalog)
+        return pipeline.to_int16(batched.hybrid_batch_device(
+            *h[:4], mix19, vol19)).cpu()
+
+    pcm_host, whole_ms = host_ms(whole)
+    want_host = pipeline.to_int16(flat_pcm).cpu().reshape(S19, F19, 240)
+    if not torch.equal(pcm_host, want_host):
+        raise AssertionError("the hybrid's whole call != phase 4's PCM")
+    del pcm_host, want_host
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev)
+    whole()
+    peak_whole = torch.cuda.max_memory_allocated(dev) - base
+    flat_chk = int(cs.checksum(flat_pcm))
+    r = cold.cold_flat94(music, COPIES, E2E_CHUNKS, cdev)
+    if not torch.equal(r["pcm"], flat_pcm) or r["checksum"] != flat_chk:
+        raise AssertionError("cold_flat94 of flat94_music != phase 4's PCM")
+    del r
+    cold_ms = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        r = cold.cold_flat94(music, COPIES, E2E_CHUNKS, cdev)
+        cold_ms.append((time.perf_counter() - t0) * 1e3)
+        if r["checksum"] != flat_chk:
+            raise AssertionError("cold_flat94 checksum")
+        del r
+    # the six assets through the hybrid, against phase 5's scalar decoder
+    assets = [_read(p) for p in paths]
+    h6 = batched.hybrid_host_stage(assets)
+    mix6 = np.zeros(h6[0].shape[:2], np.int32)
+    vol6 = np.zeros(h6[0].shape[:2], np.int32)
+    for k, (a, nf) in enumerate(zip(assets, h6[4])):
+        mix6[k, :nf], vol6[k, :nf] = fs.FlatSweep._trace(
+            a, nf, fs.MIXING_LEVEL, fs.MASTER_VOLUME)
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    pcm6 = batched.hybrid_batch_device(*h6[:4], mix6, vol6)
+    torch.cuda.synchronize()
+    c6 = dict(kernels.LAUNCHES)
+    if {k: v for k, v in c6.items() if v} != want19:
+        raise AssertionError(f"hybrid asset batch launches {c6}")
+    pcm6 = pcm6.cpu().numpy()
+    for k, (p, nf) in enumerate(zip(paths, h6[4])):
+        got6 = pcm6[k, :nf].astype(np.int16).reshape(-1)
+        if not np.array_equal(got6, ref94[p]):
+            bad = np.nonzero(got6 != ref94[p])[0]
+            raise AssertionError(f"hybrid {os.path.basename(p)}: {bad.size} "
+                                 f"samples differ from the reference, first "
+                                 f"{bad[0]}")
+    for k, r in results.items():
+        r["launches"] += c19[k] + c6[k]
+    mean = lambda v: sum(v) / len(v)
+    fmt3 = lambda v: ", ".join(f"{x:.3f}" for x in v)
+    print(f"phase 19 hybrid ({smi.splitlines()[0]}): flat94_music {S19} "
+          f"streams x {F19} frames; launches a batch {want19} (flat94_music "
+          f"and the six assets); PCM bit-exact with phase 4's flat sweep "
+          f"(same mix and volume); dequant_mix_dense bit-exact with its "
+          f"plain version on this run's slots ({n_valid} valid) and on "
+          f"{nr} random frames with and without fb_prev / active; the six "
+          f"assets bit-exact with phase 5's ReferenceDecoder")
+    print(f"phase 19 hybrid host: decode_dense_batch {fmt3(decode_ms)} ms "
+          f"(mean {mean(decode_ms):.3f}), pack {fmt3(pack_ms)} ms (mean "
+          f"{mean(pack_ms):.3f}); upload {up_bytes} B: pinned staging "
+          f"{fmt3(stage_ms)} ms (host), copies {fmt3(copy_ms)} ms (device, "
+          f"{up_bytes / (mean(copy_ms) / 1e3) / 1e9:.2f} GB/s)")
+    print(f"phase 19 hybrid device: dequant_mix_dense "
+          f"{times['dequant_mix_dense']:.4f} ms, transform94_pcm "
+          f"{tr19_ms:.4f} ms; the stage (both, on resident slots) "
+          f"{stage19_ms:.4f} ms = {audio_s / (stage19_ms / 1e3):.1f}x "
+          f"realtime, peak {peak19 / 2**30:.3f} GiB above its inputs; "
+          f"phase 4's warm sweep {sweep_ms:.4f} ms = "
+          f"{audio_s / (sweep_ms / 1e3):.1f}x")
+    print(f"phase 19 hybrid whole call (stream bytes -> int16 PCM on the "
+          f"host): {fmt3(whole_ms)} ms = "
+          f"{audio_s / (mean(whole_ms) / 1e3):.1f}x realtime (min "
+          f"{audio_s / (min(whole_ms) / 1e3):.1f}x), peak "
+          f"{peak_whole / 2**30:.3f} GiB; cold_flat94 of the same catalog "
+          f"({E2E_CHUNKS} chunks, a checksum fetch) {fmt3(cold_ms)} ms = "
+          f"{audio_s / (mean(cold_ms) / 1e3):.1f}x; phase wall "
+          f"{time.perf_counter() - t19:.1f} s")
 
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))

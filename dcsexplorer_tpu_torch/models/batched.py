@@ -29,6 +29,15 @@ CUDA tensors the two stages are the hand-written kernels
 (``ops/kernels.py``); on CPU tensors, or with ``plain=True``, their plain
 PyTorch versions.  Band types must fit in uint8, the compact columns' type.
 Bit-exact with the JAX reference on every row, pad rows included.
+
+The host-decode hybrid (``hybrid_host_stage``, ``hybrid_batch_device``,
+``hybrid_stage_device``) splits the decode the other way: the native host
+runtime decodes every stream's symbols (``native.decode_dense_batch``, a
+thread pool) into dense [S, F, 256] slot arrays at its own widths (value
+and scale int32, frame-buffer index int16, valid uint8), which travel to
+the card whole; there one ``dequant_mix_dense`` launch places them into
+frame buffers and one ``transform94_pcm`` launch (sid = stream, so each
+stream starts from a zero overlap state) makes the PCM.
 """
 
 import functools
@@ -36,6 +45,7 @@ import functools
 import numpy as np
 import torch
 
+from .. import native
 from ..ops import band_decode as bd
 from ..ops import kernels, prescan
 from ..ops import transform as tf
@@ -190,3 +200,79 @@ class SweepInputs:
                 self.fmt_type, self.sub_type, t(self.band_type),
                 t(self.band_type_prev), t(self.mix), t(self.vol_shift),
                 self.n_steps)
+
+
+# ----------------------------------------------------------------------
+# The host-decode hybrid: native host symbol decode + device numerics
+
+def pack_dense(results):
+    """NativeDecode results -> (dense, scale, fb_idx, valid) [S, F, 256]
+    numpy at the native decoder's widths (int32, int32, int16, uint8),
+    each stream padded to the longest with zeros (valid 0), and the frame
+    counts (a list)."""
+    S = len(results)
+    F = max(r.n_frames for r in results)
+    dense = np.zeros((S, F, 256), dtype=np.int32)
+    scale = np.zeros((S, F, 256), dtype=np.int32)
+    fb_idx = np.zeros((S, F, 256), dtype=np.int16)
+    valid = np.zeros((S, F, 256), dtype=np.uint8)
+    for k, r in enumerate(results):
+        n = r.n_frames
+        dense[k, :n] = r.dense
+        scale[k, :n] = r.scale
+        fb_idx[k, :n] = r.fb_idx
+        valid[k, :n] = r.valid
+    return dense, scale, fb_idx, valid, [r.n_frames for r in results]
+
+
+def hybrid_host_stage(streams):
+    """The hybrid's host half for a batch of 1994+ streams: the native
+    dense decode on a thread pool, packed by pack_dense.  Returns (dense,
+    scale, fb_idx, valid, n_frames)."""
+    return pack_dense(native.decode_dense_batch(streams))
+
+
+def upload(a, dev):
+    """A numpy array -> a tensor on ``dev``: on the card through pinned
+    memory, enqueued without blocking the host (uint16 widens to int32, as
+    packed_to_device widens it)."""
+    a = np.asarray(a)
+    t = torch.from_numpy(np.require(
+        a.astype(np.int32) if a.dtype == np.uint16 else a,
+        requirements=("C", "W")))
+    return t.pin_memory().to(dev, non_blocking=True) \
+        if dev.type == "cuda" else t
+
+
+def hybrid_batch_device(dense, scale, fb_idx, valid, mix, vol_shift,
+                        device="cuda", plain=False):
+    """The hybrid's device stage over a stream batch: dense, scale, fb_idx,
+    valid [S, F, 256] (hybrid_host_stage's), mix and vol_shift [S, F].
+    One dequant_mix_dense over the S x F rows, then one transform94_pcm
+    with sid = stream, each stream from a zero overlap state.  Tensors
+    stay on their device (one for all); numpy arrays go to ``device``
+    (the card unless given).  On CPU tensors, or with ``plain=True``, the
+    plain versions run.  Returns pcm [S, F, 240] int32 (u16 storage)."""
+    args = (dense, scale, fb_idx, valid, mix, vol_shift)
+    on_dev = [a.device for a in args if isinstance(a, torch.Tensor)]
+    dev = on_dev[0] if on_dev else _device(device)
+    dense, scale, fb_idx, valid, mix, vol_shift = (
+        a if isinstance(a, torch.Tensor) else upload(a, dev) for a in args)
+    S, F = mix.shape
+    dequant = bd.dequant_mix_dense_plain if plain else bd.dequant_mix_dense
+    to_pcm = tf.transform94_pcm_plain if plain else tf.transform94_pcm
+    fb = dequant(dense.reshape(S * F, 256),
+                 (scale.reshape(S * F, 256), fb_idx.reshape(S * F, 256),
+                  valid.reshape(S * F, 256)), mix.reshape(S * F).int())
+    sid = torch.arange(S, dtype=torch.int32, device=dev).repeat_interleave(F)
+    pcm = to_pcm(fb, vol_shift.reshape(S * F).int(), sid, _tables(dev))
+    return pcm.reshape(S, F, 240)
+
+
+def hybrid_stage_device(dense, scale, fb_idx, valid, mix, vol_shift,
+                        device="cuda", plain=False):
+    """The hybrid's device stage for one stream: dense, scale, fb_idx,
+    valid [F, 256], mix and vol_shift [F] -> pcm [F, 240] int32 (u16
+    storage), from a zero overlap state (hybrid_batch_device of one)."""
+    return hybrid_batch_device(*(a[None] for a in (
+        dense, scale, fb_idx, valid, mix, vol_shift)), device, plain)[0]

@@ -1,9 +1,10 @@
-"""Native host runtime of the port: the C++ stream indexer, VM tracer and
-1994+ encoder core.
+"""Native host runtime of the port: the C++ stream indexer and dense
+symbol decode, VM tracer and 1994+ encoder core.
 
 At first use, g++ builds ``build/torch_native/libdcs_host.so`` from
 ``src/dcs_native.cpp`` (the stream indexers of the 1994+ and the 1993
-families), ``src/tracer.cpp`` (the runtime VM tracer) and
+families, and the 1994+ dense symbol decode of the host-decode hybrid,
+``decode_dense``), ``src/tracer.cpp`` (the runtime VM tracer) and
 ``src/encoder94.cpp`` (the 1994+ format search and symbol emission),
 with a table header that ``gen_tables`` writes from
 the port's own ``format/tables.py``.  It rebuilds when a source is newer
@@ -15,6 +16,7 @@ fallback behind this module.
 import ctypes as C
 import os
 import subprocess
+from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 
@@ -166,3 +168,60 @@ def emit94_with_codes(ci, fs, codes, pidx, bands_keep):
     if n < 0:
         raise RuntimeError(f"native emit failed: {n}")
     return out[:n].tobytes()
+
+
+class NativeDecode:
+    """Result arrays of a native dense decode."""
+
+    __slots__ = ("n_frames", "header", "fmt_type", "sub_type", "error_frame",
+                 "max_symbols", "start_bit", "end_bit", "band_type",
+                 "band_type_prev", "dense", "scale", "fb_idx", "valid")
+
+
+def decode_dense(stream):
+    """Index + densely decode a 1994+ stream with the native runtime: the
+    host half of the host-decode hybrid (models/batched.py).  Per frame,
+    256 slots of sample value (int32, u16 storage), scale (int32),
+    frame-buffer index (int16) and valid flag (uint8), beside the stream
+    index.  Returns a NativeDecode; raises on failure.  (The index alone:
+    ops/prescan.prescan94.)"""
+    lib = get_lib()
+    buf = bytes(stream)
+    F = lib.dcs94_frame_count(buf, len(buf), 0)
+    if F < 0:
+        raise ValueError("stream too short")
+    r = NativeDecode()
+    r.n_frames = F
+    r.header = np.zeros(16, dtype=np.uint8)
+    meta = np.zeros(4, dtype=np.int32)
+    r.start_bit = np.zeros(F, dtype=np.int64)
+    r.end_bit = np.zeros(F, dtype=np.int64)
+    r.band_type = np.zeros((F, 16), dtype=np.int32)
+    r.band_type_prev = np.zeros((F, 16), dtype=np.int32)
+    r.dense = np.zeros((F, 256), dtype=np.int32)
+    r.scale = np.zeros((F, 256), dtype=np.int32)
+    r.fb_idx = np.zeros((F, 256), dtype=np.int16)
+    r.valid = np.zeros((F, 256), dtype=np.uint8)
+
+    def p(a):
+        return a.ctypes.data_as(C.c_void_p)
+
+    rc = lib.dcs94_decode_dense(
+        buf, len(buf), 0, p(r.header), p(meta),
+        p(r.start_bit), p(r.end_bit), p(r.band_type), p(r.band_type_prev),
+        p(r.dense), p(r.scale), p(r.fb_idx), p(r.valid))
+    if rc != 0:
+        raise RuntimeError(f"native decode failed: {rc}")
+    r.fmt_type, r.sub_type, r.error_frame, r.max_symbols = (
+        int(meta[0]), int(meta[1]), int(meta[2]), int(meta[3]))
+    return r
+
+
+def decode_dense_batch(streams):
+    """decode_dense of many streams in parallel host threads (the C calls
+    drop the GIL; min(16, cores) of them).  Returns a list of
+    NativeDecode."""
+    get_lib()                   # build or raise once, before the threads
+    workers = min(16, os.cpu_count() or 4)
+    with ThreadPoolExecutor(max_workers=workers) as ex:
+        return list(ex.map(decode_dense, streams))

@@ -18,6 +18,10 @@ over the frame axis:
   frame buffers (CUDA kernel ``csrc/dequant_mix.cu``, the port of the Pallas
   kernel ``dcsexplorer_tpu/ops/pallas_kernels.py:dequant_mix_pallas``).
 
+``dequant_mix_dense`` is the host-decode hybrid's form of that stage: the
+native host decode emits values in slot order with an explicit frame-buffer
+index each, which it places (CUDA kernel ``csrc/dequant_mix_dense.cu``).
+
 ``decode94_fb`` is the flat sweep's whole decode, compact columns in, frame
 buffers out.  Its plain version chains the five stages above; its CUDA
 kernel ``csrc/decode94_fb.cu`` builds the band controls in registers and
@@ -281,6 +285,71 @@ def dequant_mix(pos_vals, slot_ctl, mix, fb_prev=None):
         return dequant_mix_plain(pos_vals, slot_ctl, mix, fb_prev)
     scale, total = slot_ctl
     return kernels.dequant_mix(pos_vals, scale, total, mix, fb_prev)
+
+
+def dequant_mix_dense_plain(dense_vals, slot_ctl, mix, fb_prev=None,
+                            active=None):
+    """Plain version of the dequant_mix_dense kernel: the dequant/mix of
+    the host-decode hybrid, whose native host stage emits each frame's
+    sample values in slot order with an explicit frame-buffer index.
+
+    dense_vals [F, K] samples (u16 storage); slot_ctl: (scale [F, K],
+    fb_idx [F, K] target word, valid [F, K] bool or 0/1); mix [F] mixing
+    multiplier; fb_prev [F, 512] prior frame buffers, or None for silence;
+    active [F] bool, the frames where this voice plays (None: all).
+    Returns frame buffers [F, 512] int32: each valid slot's accumulate over
+    the prior word at clip(fb_idx, 0, 511), placed at fb_idx; an index
+    outside 0..511 is dropped, and valid slots that name one word put
+    their sum there.  Words no valid slot names keep fb_prev (or zero).
+    Then the saturating first-sample delta fix-up of words 0 and 1
+    (reference: band_decode.dequant_mix_dense).  The native decoder names
+    each word at most once a frame; the sums are its contract all the
+    same (at most K * $FFFF: no wrap)."""
+    scale, fb_idx, valid = slot_ctl
+    F = dense_vals.shape[0]
+    dev = dense_vals.device
+    valid = valid.bool()
+    if active is not None:
+        valid = valid & active.bool()[:, None]
+    idx = fb_idx.long()
+    scaled = (s16(dense_vals) * (scale.long() & M16)) & M16
+    if fb_prev is None:
+        prev = torch.zeros((F, 512), dtype=torch.long, device=dev)
+    else:
+        prev = fb_prev.long()
+    old = torch.gather(prev, 1, idx.clamp(0, 511))
+    new_val = ((((s16(old) << 16) | scaled)
+                + s16(scaled) * (mix.long()[:, None] & M16)) >> 16) & M16
+    # word 512 collects the slots that place nothing
+    tgt = torch.where(valid & (idx >= 0) & (idx < 512), idx, 512)
+    sums = torch.zeros((F, 513), dtype=torch.long, device=dev)
+    sums.scatter_add_(1, tgt, new_val)
+    hits = torch.zeros((F, 513), dtype=torch.long, device=dev)
+    hits.scatter_add_(1, tgt, torch.ones_like(tgt))
+    fb = torch.where(hits[:, :512] > 0, sums[:, :512], prev)
+    outbuf1 = prev[:, 1]
+    delta = sat16(s16(fb[:, 1]) - s16(outbuf1))
+    fb0 = sat16(s16(delta) + s16(fb[:, 0]))
+    fb1 = outbuf1
+    if active is not None:
+        act = active.bool()
+        fb0 = torch.where(act, fb0, fb[:, 0])
+        fb1 = torch.where(act, outbuf1, fb[:, 1])
+    fb[:, 0] = fb0
+    fb[:, 1] = fb1
+    return fb.int()
+
+
+def dequant_mix_dense(dense_vals, slot_ctl, mix, fb_prev=None, active=None):
+    """Dense-slot dequant/mix (see dequant_mix_dense_plain): plain version
+    for CPU tensors, the CUDA kernel (csrc/dequant_mix_dense.cu) for CUDA
+    tensors."""
+    if dense_vals.device.type == "cpu":
+        return dequant_mix_dense_plain(dense_vals, slot_ctl, mix, fb_prev,
+                                       active)
+    scale, fb_idx, valid = slot_ctl
+    return kernels.dequant_mix_dense(dense_vals, scale, fb_idx, valid, mix,
+                                     fb_prev, active)
 
 
 def decode94_fb_plain(pool_u8, sid, start_bit, bt_u8, mix, hdr_tab, fmt_tab,

@@ -28,10 +28,10 @@ _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO = os.path.dirname(_PKG)
 CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("decode94_fb.cu", "decode94_bank.cu", "dequant_mix.cu",
-           "segments94.cu", "session_mix94.cu", "transform94.cu",
-           "transform94_pcm.cu", "decode93_fb.cu", "transform93_pcm.cu",
-           "decode93_pcm.cu", "encode94_analyze.cu", "encode94_decide.cu",
-           "encode94_select.cu")
+           "dequant_mix_dense.cu", "segments94.cu", "session_mix94.cu",
+           "transform94.cu", "transform94_pcm.cu", "decode93_fb.cu",
+           "transform93_pcm.cu", "decode93_pcm.cu", "encode94_analyze.cu",
+           "encode94_decide.cu", "encode94_select.cu")
 HEADERS = ("dcs_fixmath.cuh", "decode94_walk.cuh", "encode94_scale.cuh")
 LIB_PATH = os.path.join(_REPO, "build", "torch_kernels", "libdcs_torch.so")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
@@ -41,8 +41,8 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 # launches per kernel; each wrapper adds one where it launches its kernel
 # (x_carry: kernel x's instance with a carried overlap state)
 LAUNCHES = {"decode94_fb": 0, "decode94_bank": 0, "dequant_mix": 0,
-            "segments94": 0, "session_mix94": 0, "transform94_planar": 0,
-            "transform94_pcm": 0, "transform94_pcm_carry": 0,
+            "dequant_mix_dense": 0, "segments94": 0, "session_mix94": 0,
+            "transform94_planar": 0, "transform94_pcm": 0, "transform94_pcm_carry": 0,
             "decode93_fb": 0, "transform93_pcm": 0,
             "transform93_pcm_carry": 0, "decode93_pcm": 0,
             "decode93_pcm_carry": 0, "encode94_analyze": 0,
@@ -78,6 +78,9 @@ _SIGNATURES = {
     # pos_vals, scale, total, mix, fb_prev (nullable), out,
     # n_frames, n_slots, stream
     "dcs_dequant_mix": [_P, _P, _P, _P, _P, _P, _I, _I, _P],
+    # dense, scale, fb_idx, valid, mix, fb_prev (nullable), active
+    # (nullable), out, n_frames, stream
+    "dcs_dequant_mix_dense": [*[_P] * 8, _I, _P],
     # fb, vol_shift, p2_c0, p2_c1, cos, sin, out_re, out_im, n_frames, stream
     "dcs_transform94_planar": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _P],
     # fb, vol_shift, sid, tables (_PCM_TABLES order), overlap0 (nullable),
@@ -295,6 +298,43 @@ def dequant_mix(pos_vals, scale, total, mix, fb_prev=None):
                 mix.data_ptr(),
                 None if fb_prev is None else fb_prev.data_ptr(),
                 out.data_ptr(), F, S)
+    return out
+
+
+def _flags(name, t, shape, device):
+    """A bool or uint8 flag tensor as uint8 (the same bytes)."""
+    if isinstance(t, torch.Tensor) and t.dtype == torch.bool:
+        t = t.view(torch.uint8)
+    _check(name, t, torch.uint8, shape, device)
+    return t
+
+
+def dequant_mix_dense(dense, scale, fb_idx, valid, mix, fb_prev=None,
+                      active=None):
+    """Dense-slot dequant/mix on the card (csrc/dequant_mix_dense.cu); see
+    band_decode.dequant_mix_dense_plain for the contract.  The native host
+    decode's widths: dense and scale int32, fb_idx int16, valid uint8 or
+    bool, all [F, 256]; mix [F] int32; fb_prev [F, 512] int32 and active
+    [F] (uint8 or bool) may each be None."""
+    F = dense.shape[0]
+    dev = dense.device
+    _check("dense", dense, torch.int32, (F, 256))
+    _check("scale", scale, torch.int32, (F, 256), dev)
+    _check("fb_idx", fb_idx, torch.int16, (F, 256), dev)
+    valid = _flags("valid", valid, (F, 256), dev)
+    _check("mix", mix, torch.int32, (F,), dev)
+    if fb_prev is not None:
+        _check("fb_prev", fb_prev, torch.int32, (F, 512), dev)
+    if active is not None:
+        active = _flags("active", active, (F,), dev)
+    out = torch.empty((F, 512), dtype=torch.int32, device=dev)
+    if F:
+        _launch("dequant_mix_dense", "dcs_dequant_mix_dense", dev,
+                dense.data_ptr(), scale.data_ptr(), fb_idx.data_ptr(),
+                valid.data_ptr(), mix.data_ptr(),
+                None if fb_prev is None else fb_prev.data_ptr(),
+                None if active is None else active.data_ptr(),
+                out.data_ptr(), F)
     return out
 
 

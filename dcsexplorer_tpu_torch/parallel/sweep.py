@@ -90,19 +90,11 @@ def split(n, k):
 
 def _put(a, dev):
     """A numpy column or a tensor -> a tensor on ``dev`` for use on its
-    current stream, enqueued without blocking the host: numpy through
-    pinned memory on the card (uint16 widens to int32, as packed_to_device
-    widens it).  A tensor already there is marked as used on that stream."""
-    if isinstance(a, torch.Tensor):
-        t = a.to(dev, non_blocking=True)
-    else:
-        a = np.asarray(a)
-        t = torch.from_numpy(np.require(
-            a.astype(np.int32) if a.dtype == np.uint16 else a,
-            requirements=("C", "W")))
-        if dev.type != "cuda":
-            return t
-        t = t.pin_memory().to(dev, non_blocking=True)
+    current stream, enqueued without blocking the host (numpy by
+    batched.upload).  A tensor already there is marked as used on that
+    stream."""
+    t = (a.to(dev, non_blocking=True) if isinstance(a, torch.Tensor)
+         else batched.upload(a, dev))
     if t.is_cuda:
         t.record_stream(torch.cuda.current_stream(dev))
     return t
@@ -236,15 +228,26 @@ def sharded_sweep(mesh, inputs):
     return _run(flat, parts, out)
 
 
-# one session decoder a (bank, device), kept while the bank lives
+# one session decoder a (bank, device), kept while the bank lives, beside
+# weak references to the bank tensors it was built from
 _DECODERS = weakref.WeakKeyDictionary()
 
 
 def _session_decoder(bank, dev):
+    """The cached session decoder of the bank on dev.  A decoder copies the
+    bank's rows (``scaled``, or the 1993 ``cols``) when it is built, and a
+    bank grows (``add``, then ``decode_all`` anew, which replaces them): a
+    decoder built from other tensors than the bank's current ones is built
+    again.  The cache holds those tensors weakly, so a replaced bank is
+    not kept alive by it."""
+    now = list(bank.cols.values()) if bank.family93 else [bank.scaled]
     per_device = _DECODERS.setdefault(bank, {})
-    if dev not in per_device:
-        per_device[dev] = pipeline.session_decoder(bank, dev)
-    return per_device[dev]
+    built = per_device.get(dev)
+    if built is None or len(built[0]) != len(now) or any(
+            ref() is not t for ref, t in zip(built[0], now)):
+        built = per_device[dev] = ([weakref.ref(t) for t in now],
+                                   pipeline.session_decoder(bank, dev))
+    return built[1]
 
 
 def sharded_sessions(mesh, bank, rows, mix, vol_shift):

@@ -134,6 +134,7 @@ names = [m.name for m in pkgutil.walk_packages(dcsexplorer_tpu_torch.__path__,
 for n in names:
     importlib.import_module(n)
 import chip_smoke
+import numpy as np
 import torch
 torch.set_num_threads(1)    # beside other test workers, one thread is faster
 from dcsexplorer_tpu_torch.models import flatsweep as fs
@@ -156,6 +157,11 @@ from dcsexplorer_tpu_torch.parallel import sweep
 assert {"dcsexplorer_tpu_torch.graft_entry", "dcsexplorer_tpu_torch.models.batched",
         "dcsexplorer_tpu_torch.parallel.sweep"} <= set(names)
 assert len(graft_entry.dryrun_multichip(2, "cpu")) == 2
+dense, scale, fb_idx, valid, nf = batched.hybrid_host_stage(
+    [open(sys.argv[1], "rb").read()])
+z = np.zeros((1, nf[0]), np.int32)
+assert batched.hybrid_batch_device(dense, scale, fb_idx, valid, z, z,
+                                   device="cpu").shape == (1, nf[0], 240)
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "dcsexplorer_tpu"))
 assert not bad, bad
@@ -166,9 +172,10 @@ print(len(names))
 def test_port_never_imports_jax():
     # a fresh interpreter: this test process has jax and the JAX package
     # loaded.  After the port, chip_smoke, a CPU sweep, a served CPU
-    # session batch, the explorer's --validate on the CPU and the sharded
-    # paths (dryrun_multichip on a mesh of two CPU entries), neither jax
-    # nor any module of dcsexplorer_tpu may be loaded.
+    # session batch, the explorer's --validate on the CPU, the sharded
+    # paths (dryrun_multichip on a mesh of two CPU entries) and the
+    # host-decode hybrid, neither jax nor any module of dcsexplorer_tpu may
+    # be loaded.
     paths, _ = _streams()
     r = subprocess.run([sys.executable, "-c", _NO_JAX, paths[0]], cwd=REPO,
                        capture_output=True, text=True, timeout=300)

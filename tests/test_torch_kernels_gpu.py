@@ -41,11 +41,16 @@ Fmax from 16 to 528 (two rounds of the scan), B 1 and 64, decision bytes
 past 15, and two calls in a row on scratch memory left dirty; the cold
 sweeps (chunked uploads from pinned buffers on a copy stream, one
 ColdDevice over repeated calls) and catalog_pipeline against the CPU,
-a torch.profiler trace of the flat sweep that holds its kernels, and the
+a torch.profiler trace of the flat sweep that holds its kernels, the
 sharded paths over four side streams of one card (["cuda:0"] * 4, inputs
 made on the current stream just before the call): the flat sweep, the
 1994+ and 1993 sessions and the padded model's 2-D sweep against one
-device, the plain path and the CPU, with four launches of each kernel.  Every
+device, the plain path and the CPU, with four launches of each kernel,
+and sessions over a bank that grew between two calls; the host-decode
+hybrid's dense dequant/mix on random slots (duplicate indices, indices
+outside 0..511, prior buffers and active flags given and absent) and on
+the assets' native decode, and the hybrid against its plain path and the
+CPU with one launch of each kernel.  Every
 comparison is bit for bit.  chip_smoke.py covers
 the real catalogs and the full-width session6 and session93a batches.
 """
@@ -184,6 +189,94 @@ def test_dequant_mix_kernel_on_random_inputs(dev, n_slots, with_prev):
     assert torch.equal(want & 0xFFFF, got & 0xFFFF)
 
 
+def _random_dense_slots(seed, F, dev):
+    """Random dense slots at the native widths on the card, as
+    tests/test_torch_hybrid.py makes them: values and scales over more
+    than 16 bits, indices from -40 to 559 and, in a quarter of the slots,
+    0..7 (duplicates), one frame whose every slot names word 5, prior
+    words over all 32 bits, about 70% of the frames active."""
+    rng = np.random.default_rng(seed)
+    ix = rng.integers(-40, 560, (F, 256)).astype(np.int16)
+    ix[:, :64] = rng.integers(0, 8, (F, 64))
+    ix[3] = 5
+    va = (rng.random((F, 256)) < 0.6).astype(np.uint8)
+    va[3] = 1
+    arrays = (rng.integers(-70000, 70000, (F, 256)).astype(np.int32),
+              rng.integers(-70000, 70000, (F, 256)).astype(np.int32), ix, va,
+              rng.integers(0, 1 << 16, F).astype(np.int32),
+              rng.integers(-(1 << 31), 1 << 31, (F, 512),
+                           dtype=np.int64).astype(np.int32),
+              rng.random(F) < 0.7)
+    return [torch.tensor(a, device=dev) for a in arrays]
+
+
+@pytest.mark.parametrize("with_prev", [False, True])
+@pytest.mark.parametrize("with_active", [False, True])
+def test_dequant_mix_dense_kernel_on_random_inputs(dev, with_prev,
+                                                   with_active):
+    d, sc, ix, va, mx, prev, active = _random_dense_slots(
+        2 * with_prev + with_active, 3001, dev)
+    prev = prev if with_prev else None
+    active = active if with_active else None
+    want = bd.dequant_mix_dense_plain(d, (sc, ix, va), mx, prev, active)
+    before = kernels.LAUNCHES["dequant_mix_dense"]
+    got = bd.dequant_mix_dense(d, (sc, ix, va), mx, prev, active)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["dequant_mix_dense"] == before + 1
+    assert torch.equal(want, got)
+    assert int(want.max()) > 0xFFFF          # sums of duplicates
+    # valid and active as bool: the same bytes
+    got_b = kernels.dequant_mix_dense(
+        d, sc, ix, va.bool(), mx, prev,
+        None if active is None else active.bool())
+    assert torch.equal(want, got_b)
+    with pytest.raises(TypeError, match="int16"):
+        kernels.dequant_mix_dense(d, sc, ix.int(), va, mx)
+
+
+def test_dequant_mix_dense_kernel_on_the_assets(dev):
+    streams = [open(p, "rb").read()
+               for p in sorted(glob.glob(os.path.join(ASSETS, "*.dcs94")))]
+    dense, scale, fb_idx, valid, _ = batched.hybrid_host_stage(streams)
+    rng = np.random.default_rng(44)
+    S, F = dense.shape[:2]
+    t = lambda a: torch.tensor(a, device=dev).reshape(S * F, -1)
+    args = [t(a) for a in (dense, scale, fb_idx, valid)]
+    mix = torch.tensor(rng.integers(0, 1 << 16, S * F).astype(np.int32),
+                       device=dev)
+    prev = torch.tensor(rng.integers(0, 1 << 16, (S * F, 512))
+                        .astype(np.int32), device=dev)
+    for fb_prev in (None, prev):
+        want = bd.dequant_mix_dense_plain(args[0], args[1:], mix, fb_prev)
+        got = kernels.dequant_mix_dense(*args, mix, fb_prev)
+        torch.cuda.synchronize()
+        assert torch.equal(want, got)
+
+
+def test_hybrid_on_the_card_equals_the_plain_path_and_the_cpu(dev):
+    streams = [open(p, "rb").read()
+               for p in sorted(glob.glob(os.path.join(ASSETS, "*.dcs94")))]
+    host = batched.hybrid_host_stage(streams)
+    S, F = host[0].shape[:2]
+    rng = np.random.default_rng(45)
+    mix = rng.integers(0, 1 << 16, (S, F)).astype(np.int32)
+    vol = rng.integers(0, 4, (S, F)).astype(np.int32)
+    cpu = batched.hybrid_batch_device(*host[:4], mix, vol, device="cpu")
+    before = dict(kernels.LAUNCHES)
+    got = batched.hybrid_batch_device(*host[:4], mix, vol)   # to the card
+    torch.cuda.synchronize()
+    assert _launched(before) == {"dequant_mix_dense": 1,
+                                 "transform94_pcm": 1}
+    assert got.device == dev
+    on_card = [torch.tensor(a, device=dev) for a in (*host[:4], mix, vol)]
+    plain = batched.hybrid_batch_device(*on_card, plain=True)
+    assert torch.equal(got, plain)
+    assert torch.equal(got.cpu(), cpu)
+    # one stream alone, tensors already on the card
+    one = batched.hybrid_stage_device(*(a[2] for a in on_card))
+    assert torch.equal(one, got[2])
+
+
 def test_transform94_kernel_on_edge_frames(dev, tabs):
     rng = np.random.default_rng(31)
     fb = rng.integers(0, 0x10000, size=(2048, 512)).astype(np.int32)
@@ -270,7 +363,8 @@ def test_sweep_on_the_card_equals_the_cpu_sweep(dev):
     want = fs.FlatPipeline("cpu")(**fs.packed_to_device(arrays, "cpu"))
     assert torch.equal(want, got.cpu())
     assert launched == {"decode94_fb": 1, "decode94_bank": 0,
-                        "dequant_mix": 0, "segments94": 0, "session_mix94": 0,
+                        "dequant_mix": 0, "dequant_mix_dense": 0,
+                        "segments94": 0, "session_mix94": 0,
                         "transform94_planar": 0, "transform94_pcm": 1,
                         "transform94_pcm_carry": 0, "decode93_fb": 0,
                         "transform93_pcm": 0, "transform93_pcm_carry": 0,
@@ -556,7 +650,8 @@ def test_session_server_on_the_card_equals_the_cpu_server(dev):
     assert all(np.array_equal(w, g) for w, g in zip(want, got))
     # a served batch starts each session from a zero state: no carry
     assert launched == {"decode94_fb": 0, "decode94_bank": 1,
-                        "dequant_mix": 0, "segments94": 3, "session_mix94": 3,
+                        "dequant_mix": 0, "dequant_mix_dense": 0,
+                        "segments94": 3, "session_mix94": 3,
                         "transform94_planar": 0, "transform94_pcm": 3,
                         "transform94_pcm_carry": 0, "decode93_fb": 0,
                         "transform93_pcm": 0, "transform93_pcm_carry": 0,
@@ -1494,6 +1589,36 @@ def test_sharded_sessions_on_the_card_equal_one_decoder(dev, rom93):
         assert np.array_equal(pipeline.to_int16(got).reshape(S, -1).cpu()
                               .numpy(), want)
         assert np.abs(want).max() > 0
+
+
+@pytest.mark.parametrize("family", ["1994", "1993"])
+def test_sharded_sessions_on_the_card_follow_a_bank_that_grew(dev, family):
+    # the bank grows between two calls over ["cuda:0"] * 2: the second
+    # call's rows name the new stream's frames (a stale decoder would trap
+    # in session_mix94 or decode93_pcm on a row past its bank)
+    os_v, names = {"1994": (rd.OS94, ("sine_mix_1s.dcs94", "chirpy.dcs94")),
+                   "1993": (rd.OS93B, ("music_a.dcs93b", "music_b.dcs93a"))
+                   }[family]
+    bank, cpu_bank = pipeline.StreamBank(os_v), pipeline.StreamBank(os_v)
+    rng = np.random.default_rng(46)
+    for k, name in enumerate(names):
+        mem = open(os.path.join(ASSETS, name), "rb").read()
+        for b, where in ((bank, dev), (cpu_bank, "cpu")):
+            b.add(mem)
+            b.decode_all(where)
+        n_rows = bank.total_rows()
+        lo = 1 if k == 0 else n_rows - ((mem[0] << 8) | mem[1])
+        rows = rng.integers(lo, n_rows, size=(3, 50, 2)).astype(np.int32)
+        mix = rng.integers(0, 1 << 16, size=(3, 50, 2)).astype(np.int32)
+        vol = rng.integers(0, 4, size=(3, 50)).astype(np.int32)
+        got = sweep.sharded_sessions(["cuda:0"] * 2, bank, rows, mix, vol)
+        fresh = pipeline.session_decoder(bank)
+        one = torch.stack([pipeline.device_decode(fresh, r, m, v)[0]
+                           for r, m, v in zip(rows, mix, vol)])
+        torch.cuda.synchronize()
+        assert torch.equal(got, one), k
+        assert torch.equal(got.cpu(), sweep.sharded_sessions(
+            ["cpu"] * 2, cpu_bank, rows, mix, vol)), k
 
 
 def test_sharded_sweep_on_the_card_equals_the_plain_path(dev):

@@ -16,7 +16,9 @@ device (["cpu"] * 8): the split, the halo and the gather run as on
 - sessions at B = 6 on 8 devices (two empty shards) on the synthetic ROM
   of test_parallel.py against the JAX sharded_sessions on the 8-device
   virtual mesh; a 3-shard uneven split, a mesh longer than B, and the 1993
-  bank of data/session93a.zip."""
+  bank of data/session93a.zip;
+- sessions over a bank that grew between two calls, for both families
+  (the session decoder cached for a bank must not outlive its rows)."""
 
 import glob
 import os
@@ -41,6 +43,7 @@ from dcsexplorer_tpu_torch.models import pipeline as tpl
 from dcsexplorer_tpu_torch.models import romplay as trp
 from dcsexplorer_tpu_torch.ops import kernels
 from dcsexplorer_tpu_torch.parallel import sweep
+from dcsexplorer_tpu_torch.refdec import decoder as trd
 from dcsexplorer_tpu_torch.rom import zipload as tzip
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
@@ -287,6 +290,48 @@ def test_sharded_sessions_on_a_1993_bank():
     for n in (3, 8):
         got = sweep.sharded_sessions(["cpu"] * n, bank, rows, mix, vol)
         assert torch.equal(got, one), n
+
+
+# the bank a family grows by: (os_version name, first stream, added stream)
+GROWN_BANKS = {"1994": ("OS94", "sine_mix_1s.dcs94", "chirpy.dcs94"),
+               "1993": ("OS93B", "music_a.dcs93b", "music_b.dcs93a")}
+
+
+@pytest.mark.parametrize("family", sorted(GROWN_BANKS))
+def test_sharded_sessions_follow_a_bank_that_grew(family):
+    # a bank grows between two calls (add, then decode_all anew): the
+    # second call's rows name the new stream's frames.  Each call equals
+    # the JAX sharded_sessions over 2 virtual devices and a session
+    # decoder built afresh, bit for bit; a decoder cached from the first
+    # call's bank would decode against its old rows.  The JAX bank holds
+    # both streams from the start (one compile of its build): a bank only
+    # appends, so the first call's rows are the same rows in it
+    os_name, first, added = GROWN_BANKS[family]
+    mems = [_read(os.path.join(ASSETS, n)) for n in (first, added)]
+    jbank = jpl.StreamBank(getattr(jrd, os_name))
+    for mem in mems:
+        jbank.add(mem)
+    jbank.decode_all()
+    mesh = jsweep.make_flat_mesh(jax.devices()[:2])
+    tbank = tpl.StreamBank(getattr(trd, os_name))
+    rng = np.random.default_rng(len(family))
+    B, T, C = 2, 24, 2
+    for k, mem in enumerate(mems):
+        tbank.add(mem)
+        tbank.decode_all("cpu")
+        n_rows = tbank.total_rows()
+        assert n_rows == 1 + sum((m[0] << 8) | m[1] for m in mems[:k + 1])
+        lo = 1 if k == 0 else n_rows - ((mem[0] << 8) | mem[1])
+        rows = rng.integers(lo, n_rows, size=(B, T, C)).astype(np.int32)
+        rows[:, ::5, 1] = 0                          # silent voices too
+        mix = rng.integers(0, 1 << 16, size=(B, T, C)).astype(np.int32)
+        vol = rng.integers(0, 4, size=(B, T)).astype(np.int32)
+        got = sweep.sharded_sessions(["cpu"] * 2, tbank, rows, mix, vol)
+        want = np.asarray(jsweep.sharded_sessions(mesh, jbank, rows, mix,
+                                                  vol))
+        assert np.array_equal(want & 0xFFFF, got.numpy()), k
+        assert torch.equal(got, _one_by_one(tbank, rows, mix, vol)), k
+        assert np.abs(want).max() > 0
 
 
 def test_meshes():
