@@ -187,9 +187,32 @@ non-zero):
      PCM on the host (x realtime) beside cold_flat94 of the same catalog;
      the six .dcs94 assets through the hybrid (one launch of each kernel)
      against phase 5's ReferenceDecoder PCM
+ 20. the ROM compiler and encoder CLI (tools/encoder_cli.py, compiler/):
+     240 WAVs of 2.0 s from phase 13's generator (seed 7; every third file
+     at 44,100 Hz, so the resampler runs; 192 of them, the count first
+     asked for, fill only 4 chips of 1 MiB, this content encoding at ~84
+     kbps; 240 fill 5 and keep the bank, 62,640 frames, under the session
+     wire's 64Ki row ids) and a script that plays each on a track of its own (channel i
+     mod 6, a SetMixingLevel; every fourth stream at BitRate=96000: two
+     parameter sets), compiled with encoder_cli.main(["--script", ...,
+     "--rom-size", "1M"]) on the card with the counters at 0: one launch of
+     each encoder kernel a chunk of 16 a parameter set; the set must span
+     at least 5 of its 8 chips; every stream in the ROM image, found through
+     its track, byte-identical with the port's host encode_pcm of its file;
+     the zip loaded, its bank built on the card (decode94_bank) and one
+     batch of 64 sessions x 500 frames, each starting other tracks, served
+     (SessionServer), sessions 0 and 63 bit-exact with the port's
+     ReferenceDecoder over 250 frames; --patch session6.zip with a script
+     replacing 4 of its 6 streams: the untouched streams equal the
+     prototype's bytes, the replaced ones the host encode.  Printed: the
+     streams, seconds of audio, chips and stream bytes; the host parse,
+     preparation and emission ms; each chunk's device ms (CUDA events
+     around its launches); the layout ms; the compile's wall time and x
+     realtime, beside the card's name and power limit
 Then the script's wall time, one JSON line of per-kernel results
-(launches: over all ten paths, each path's own printed in phases 4, 7,
-10, 11, 13, 14, 15, 17, 18 and 19), and last the {"ok": true, ...} line.
+(launches: over all eleven paths, each path's own printed in phases 4, 7,
+10, 11, 13, 14, 15, 17, 18, 19 and 20), and last the {"ok": true, ...}
+line.
 There is no CPU path: without a CUDA device the script exits 1.
 """
 
@@ -202,6 +225,7 @@ import shutil
 import subprocess
 import sys
 import time
+import zipfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 STREAMS = os.path.join(HERE, "assets", "streams")
@@ -214,6 +238,8 @@ SESSIONS, SESSION_FRAMES, VOICES, SEG_E = 320, 1000, 6, 32   # bench.py session6
 COPIES93 = 72                  # x 2 streams: bench.py's dec93b and dec93a_t1
 REF_FRAMES = 250               # frames held against the scalar decoder
 ENC_FILES = 64                 # bench.py's enc94_dev: 64 files of 2.0 s
+ROM_FILES = 240                # phase 20's WAVs of 2.0 s (see the docstring)
+ROM_SESSIONS, ROM_FRAMES = 64, 500
 LEGACY = ("sine_mix_1s", "noise_sweep", "tone_low", "chirpy")
 FLAT94_COPIES = 288            # x LEGACY: bench.py's flat94
 E2E_COPIES, E2E_CHUNKS = 24, 4  # bench.py's flat94_e2e and catalog_e2e
@@ -306,16 +332,17 @@ def session_events(b):
     return events
 
 
-def enc_jobs(n_files, seconds=2.0):
+def enc_jobs(n_files, seconds=2.0, rates=(31250,)):
     """bench.py's encoder jobs (_enc_jobs): n_files of int16 PCM at
     31,250 Hz, chords of four tones with AM and a noise floor, seed 7.
-    Returns (jobs, seconds of audio)."""
+    File k is at rates[k % len(rates)] Hz.  Returns (jobs, seconds of
+    audio)."""
     import numpy as np
-    rate = 31250
     rng = np.random.default_rng(7)
-    t = np.arange(int(rate * seconds)) / rate
     jobs = []
     for k in range(n_files):
+        rate = rates[k % len(rates)]
+        t = np.arange(int(rate * seconds)) / rate
         x = np.zeros_like(t)
         for f0 in (220.0, 277.2, 329.6, 440.0):
             x += 0.2 * np.sin(2 * np.pi * f0 * (1 + 0.01 * k) * t)
@@ -2282,6 +2309,203 @@ def main():
           f"({E2E_CHUNKS} chunks, a checksum fetch) {fmt3(cold_ms)} ms = "
           f"{audio_s / (mean(cold_ms) / 1e3):.1f}x; phase wall "
           f"{time.perf_counter() - t19:.1f} s")
+
+    # 20. the ROM compiler and the encoder CLI: a script's streams encoded
+    # in batches on the card, the set played back, patch mode
+    t20 = time.perf_counter()
+    from dcsexplorer_tpu_torch.rom import tracks as rtracks
+    from dcsexplorer_tpu_torch.tools import encoder_cli
+    from dcsexplorer_tpu_torch.utils import audioio
+    work = os.path.join(HERE, "build", "chip_smoke_rom")
+    shutil.rmtree(work, ignore_errors=True)
+    os.makedirs(work)
+    rom_jobs, rom_audio_s = enc_jobs(ROM_FILES, rates=(31250, 31250, 44100))
+    lines = ["Default encoding parameters (Type=*, Subtype=*, "
+             "BitRate=128000);"]
+    for k, (pcm, rate) in enumerate(rom_jobs):
+        audioio.write_wav(os.path.join(work, f"f{k:03d}.wav"), pcm, rate)
+        lines.append(f'Stream S{k:03d} "f{k:03d}.wav"'
+                     + (" (BitRate=96000)" if k % 4 == 3 else "") + ";")
+    for k in range(ROM_FILES):
+        lines.append(f"Track ${k + 1:04X} channel {k % 6} {{ "
+                     f"SetMixingLevel(${0x50 + k % 32:02X}); Play(S{k:03d}); "
+                     f"Wait(stream); }};")
+    with open(os.path.join(work, "rom.dcss"), "w") as f:
+        f.write("\n".join(lines) + "\n")
+    out_zip = os.path.join(work, "rom.zip")
+    groups = (ROM_FILES - ROM_FILES // 4, ROM_FILES // 4)
+    chunks = sum(-(-n // 16) for n in groups)
+    on_enc_path = ("encode94_analyze", "encode94_decide", "encode94_select")
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    st20 = {}
+    t0 = time.perf_counter()
+    rc = encoder_cli.main(["--script", os.path.join(work, "rom.dcss"), "-o",
+                           out_zip, "--rom-size", "1M", "-q"], stats=st20)
+    compile_s = time.perf_counter() - t0
+    c20 = dict(kernels.LAUNCHES)
+    if rc != 0:
+        raise AssertionError(f"encoder_cli --script exited {rc}")
+    if any(c20[k] != chunks for k in on_enc_path) or \
+            len(st20["chunk_ms"]) != chunks:
+        raise AssertionError(f"the compile's encoder launches {c20}, "
+                             f"{len(st20['chunk_ms'])} chunk spans; "
+                             f"expected {chunks} chunks of 16 over the "
+                             f"parameter sets {groups}")
+    rs20, _ = zipload.load_zip_file(out_zip)
+    if rs20.check() != 1 or rs20.os_version != rd.OS94:
+        raise AssertionError("the compiled set does not load as an OS94 ROM")
+    with zipfile.ZipFile(out_zip) as zf:   # romgen writes the chips it used
+        zip_images = [zf.read(n) for n in zf.namelist()]
+    n_chips = len(zip_images)
+    used = [len(img.rstrip(b"\xff")) for img in zip_images]
+    if not 5 <= n_chips <= 8:
+        raise AssertionError(f"the compiled set spans {n_chips} chips of "
+                             f"1 MiB; expected 5 to 8")
+    fmt3 = lambda v: ", ".join(f"{x:.3f}" for x in v)
+    print(f"phase 20 compiler ({smi.splitlines()[0]}): {ROM_FILES} streams "
+          f"(not 192: 192 of these fill only 4 chips of 1 MiB; 240 keep the "
+          f"bank under the session wire's 64Ki rows), "
+          f"{rom_audio_s:.1f} s audio ({ROM_FILES // 3} files at 44,100 Hz), "
+          f"{n_chips} chips of 1 MiB (to the last byte written: {used}); "
+          f"parameter sets {groups}, {chunks} chunks; "
+          f"launches {dict((k, c20[k]) for k in on_enc_path)}")
+    print(f"phase 20 compile: parse {st20['parse_s'] * 1e3:.1f} ms (WAV "
+          f"read + resample + int16), prep {st20['prep_s'] * 1e3:.1f} ms, "
+          f"emission {st20['emit_s'] * 1e3:.1f} ms (the fetch wait "
+          f"included), layout {st20['layout_s'] * 1e3:.1f} ms; chunk device "
+          f"ms [{fmt3(st20['chunk_ms'])}]; whole compile {compile_s:.3f} s "
+          f"wall = {rom_audio_s / compile_s:.1f}x realtime")
+    # every stream of the set, found through its track, against the port's
+    # host encode of its file as the compiler reads it
+    def track_bytes(rs, t, n):
+        """The n bytes at the stream that track t plays."""
+        ops = [op for op in rtracks.decompile_track(rs, rs.os_version, t)
+               if op.opcode == 0x01]
+        if len(ops) != 1:
+            raise AssertionError(f"track {t}: {len(ops)} play ops")
+        o = ops[0].operands
+        p = rs.make_pointer((o[1] << 16) | (o[2] << 8) | o[3])
+        return bytes(p.mem[p.pos:p.pos + n])
+
+    def host_stream(path, bitrate):
+        audio, rate = audioio.read_audio(path)
+        return enc.encode_pcm(audio * 32768.0, enc.CompressionParams(
+            target_bit_rate=bitrate), sample_rate=rate)[0]
+
+    t0 = time.perf_counter()
+    stream_bytes, checked = 0, 0
+    step = 1
+    for k in range(0, ROM_FILES, step):
+        want = host_stream(os.path.join(work, f"f{k:03d}.wav"),
+                           96000 if k % 4 == 3 else 128000)
+        if track_bytes(rs20, k + 1, len(want)) != want:
+            raise AssertionError(f"stream {k} of the compiled set != the "
+                                 f"host encode_pcm of f{k:03d}.wav")
+        stream_bytes += len(want)
+        checked += 1
+        if k == 15 and step == 1:
+            # over 30 s for all of them: check every step-th
+            est = (time.perf_counter() - t0) / 16 * ROM_FILES
+            step = max(1, -(-int(est) // 30))
+            if step > 1:
+                print(f"phase 20: the host encode of all {ROM_FILES} "
+                      f"streams would take ~{est:.0f} s: checking every "
+                      f"{step}th after the first 16")
+    host_check_s = time.perf_counter() - t0
+    # play it back: the bank on the card, one batch of sessions
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    bank20 = romplay.build_rom_bank(rs20, dev)
+    # session b starts a track of its own at frame 0 and another at 250,
+    # spread over all the set's tracks (1..ROM_FILES)
+    first20 = [1 + b * (ROM_FILES - 2) // ROM_SESSIONS
+               for b in range(ROM_SESSIONS)]
+    batch20 = [{0: [t >> 8, t & 0xFF], 250: [(t + 2) >> 8, (t + 2) & 0xFF]}
+               for t in first20]
+    with romplay.SessionServer(rs20, ROM_SESSIONS, ROM_FRAMES, n_ch=6,
+                               seg_e=SEG_E, bank=bank20, device=dev) as srv20:
+        got20 = srv20.serve_one(batch20)
+    torch.cuda.synchronize()
+    p20 = dict(kernels.LAUNCHES)
+    on_play = ("decode94_bank", "segments94", "session_mix94",
+               "transform94_pcm")
+    if not all(p20[k] > 0 for k in on_play):
+        raise AssertionError(f"a kernel of the playback did not launch: "
+                             f"{p20}")
+    for b in (0, ROM_SESSIONS - 1):
+        dec = rd.ReferenceDecoder()
+        dec.default_volume = 0x67
+        dec.load_rom_set(rs20)
+        dec.soft_boot()
+        ref = []
+        for f in range(REF_FRAMES):
+            for byte in batch20[b].get(f, ()):
+                dec.write_data_port(byte)
+            ref.extend(dec.next_samples(240))
+        ref = np.array(ref, dtype=np.int16)
+        if not np.array_equal(ref, got20[b, :REF_FRAMES * 240]):
+            bad = np.nonzero(ref != got20[b, :REF_FRAMES * 240])[0]
+            raise AssertionError(f"compiled set, session {b}: {bad.size} "
+                                 f"samples differ from the scalar decoder, "
+                                 f"first {bad[0]}")
+        if not np.abs(ref.astype(np.int32)).max() > 0:
+            raise AssertionError(f"compiled set, session {b} is silent")
+    del bank20
+    # patch mode over session6.zip: the streams of its tracks 1-4 replaced
+    # (it holds 6; the first four WAVs, one at 44,100 Hz), tracks 5-6 kept
+    rs6, _ = zipload.load_zip_file(SESSION6_ZIP)
+    rs6.check()
+    assets6 = [_read(os.path.join(STREAMS, f"{n}.dcs94")) for n in (
+        "music_a", "music_b", "sine_mix_1s", "noise_sweep", "tone_low",
+        "chirpy")]
+    for t, a in enumerate(assets6, 1):
+        if track_bytes(rs6, t, len(a)) != a:
+            raise AssertionError(f"session6.zip track {t} does not play "
+                                 f"its asset")
+    n_rep = 4
+    with open(os.path.join(work, "patch.dcss"), "w") as f:
+        f.write("Default encoding parameters (Type=*, Subtype=*, "
+                "BitRate=128000);\n")
+        for t in range(1, n_rep + 1):
+            o = [op for op in rtracks.decompile_track(rs6, rd.OS94, t)
+                 if op.opcode == 0x01][0].operands
+            f.write(f'Stream R{t} replaces ${o[1]:02X}{o[2]:02X}{o[3]:02X} '
+                    f'"f{t - 1:03d}.wav";\n')
+    patch_zip = os.path.join(work, "patched.zip")
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    rc = encoder_cli.main(["--script", os.path.join(work, "patch.dcss"),
+                           "--patch", SESSION6_ZIP, "-o", patch_zip, "-q"])
+    patch_s = time.perf_counter() - t0
+    pc20 = dict(kernels.LAUNCHES)
+    if rc != 0 or any(pc20[k] != 1 for k in on_enc_path):
+        raise AssertionError(f"encoder_cli --patch exited {rc}, launches "
+                             f"{pc20}")
+    rsp, _ = zipload.load_zip_file(patch_zip)
+    if rsp.check() != 1:
+        raise AssertionError("the patched set fails its checks")
+    for t in range(1, 7):
+        want = (host_stream(os.path.join(work, f"f{t - 1:03d}.wav"), 128000)
+                if t <= n_rep else assets6[t - 1])
+        if track_bytes(rsp, t, len(want)) != want:
+            raise AssertionError(f"patched set, track {t}: its stream != "
+                                 + ("the host encode" if t <= n_rep else
+                                    "the prototype's bytes"))
+    for k, r in results.items():
+        r["launches"] += c20[k] + p20[k] + pc20[k]
+    print(f"phase 20 checks: {checked} of {ROM_FILES} streams ({stream_bytes} "
+          f"bytes; step {step} past the first 16) byte-identical with the "
+          f"host encode_pcm ({host_check_s:.3f} s); {ROM_SESSIONS} sessions x "
+          f"{ROM_FRAMES} frames served on the compiled set, launches "
+          f"{dict((k, p20[k]) for k in on_play)}, sessions 0 and "
+          f"{ROM_SESSIONS - 1} bit-exact with ReferenceDecoder over "
+          f"{REF_FRAMES} frames; --patch session6.zip replacing {n_rep} of "
+          f"its 6 streams ({patch_s:.3f} s): the other 2 the prototype's "
+          f"bytes, the {n_rep} the host encode; phase wall "
+          f"{time.perf_counter() - t20:.1f} s")
+    shutil.rmtree(work, ignore_errors=True)
 
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))

@@ -16,12 +16,18 @@ code it needs is its own copy, in the reference's layout.
                 ``ops/kernels.py``).
 - ``models``  — the flat 1994+ catalog sweep (host ``FlatSweep`` packing and
                 the ``FlatPipeline`` device module).
-- ``encoder`` — the 1994+ encoder: the host's analysis and per-stream setup,
-                and the format search on the device (``device94``:
+- ``encoder`` — the encoders: the host's analysis and per-stream setup,
+                the 1994+ format search on the device (``device94``:
                 ``DeviceEncoder94``, ``encode_batch``,
-                ``encode_files_device``).
+                ``encode_files_device``), the host's ``encode_pcm`` of
+                every family (the 1993 one in ``encoder93``).
+- ``compiler`` — the ROM compiler: a script and its audio to a ROM zip
+                (``script.compile_script_file``), the 1994+ streams encoded
+                in batches on the device.
 - ``tools``   — the explorer CLI (``python -m
-                dcsexplorer_tpu_torch.tools.explorer ROM.zip``).
+                dcsexplorer_tpu_torch.tools.explorer ROM.zip``) and the
+                encoder CLI (``python -m
+                dcsexplorer_tpu_torch.tools.encoder_cli``).
 
 Values follow the reference's u16-in-int32 storage convention throughout.
 """

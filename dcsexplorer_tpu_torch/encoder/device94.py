@@ -35,6 +35,7 @@ would not be exact).
 
 import functools
 import math
+import time
 
 import numpy as np
 import torch
@@ -539,20 +540,27 @@ def _to_device(arrays, dev):
     return out
 
 
-def _run(enc, x, nf, arrs, dev):
+def _run(enc, x, nf, arrs, dev, spans=None):
     """Launch the device program on a chunk's arrays; returns the packed
     rows on the host (a pinned buffer filled asynchronously, with the event
-    that marks its arrival, on a card)."""
+    that marks its arrival, on a card).  On a card, spans (a list) receives
+    the pair of CUDA events around the program's launches."""
     with record_function("upload"):
         d = _to_device(dict(x=x, nf=nf, keep=arrs["keep"], thr=arrs["thr"],
                             dlim=arrs["dlim"], cape=arrs["cape"],
                             hdr_scale=arrs["hdr_scale"],
                             wanted=arrs["wanted"]), dev)
     with record_function("dispatch"):
+        if dev.type == "cuda" and spans is not None:
+            spans.append((torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True)))
+            spans[-1][0].record()
         packed = enc(d["x"], d["nf"], arrs["sil_max"], d["keep"], d["thr"],
                      d["dlim"], d["cape"], d["hdr_scale"], d["wanted"])
         if dev.type != "cuda":
             return packed, None
+        if spans is not None:
+            spans[-1][1].record()
         host = torch.empty(packed.shape, dtype=packed.dtype, pin_memory=True)
         host.copy_(packed, non_blocking=True)
         done = torch.cuda.Event()
@@ -614,14 +622,18 @@ def emit_chunk(buf, cis, setups, slots):
                 for i, st in enumerate(setups)]
 
 
-def encode_jobs_pcm(jobs, params, device="cuda", chunk=None):
+def encode_jobs_pcm(jobs, params, device="cuda", chunk=None, stats=None):
     """Batched device encode from PCM, chunk by chunk (default 16 files a
     chunk): the host prepares chunk i+1 while the card searches chunk i,
     and emits chunk i while the card searches chunk i+1 (pinned buffers,
     asynchronous copies, one host thread).
 
     jobs: list of (pcm, sample_rate).  Returns list of (stream, n_frames),
-    byte-identical to the host encoder for every input."""
+    byte-identical to the host encoder for every input.  stats: a dict that
+    accumulates the host's wall seconds of preparation ("prep_s") and of
+    emission ("emit_s", the wait for the chunk's rows included) and
+    receives, on a card, each chunk's device ms ("chunk_ms": CUDA events
+    around its launches, after its upload)."""
     dev = _device(device)
     slots = _select_formats(params)
     n = len(jobs)
@@ -630,17 +642,28 @@ def encode_jobs_pcm(jobs, params, device="cuda", chunk=None):
     chunk = chunk or min(16, n)
     enc = _encoder(slots, dev)
     ranges = [(i, min(i + chunk, n)) for i in range(0, n, chunk)]
+    spans = [] if stats is not None else None
+    secs = {"prep_s": 0.0, "emit_s": 0.0}
 
     def submit(lo, hi):
+        t0 = time.perf_counter()
         cis, setups, pcm, nf, arrs = prepare_chunk(jobs[lo:hi], params,
                                                    slots)
-        return cis, setups, _run(enc, pcm, nf, arrs, dev)
+        secs["prep_s"] += time.perf_counter() - t0
+        return cis, setups, _run(enc, pcm, nf, arrs, dev, spans)
 
     out = []
     cur = submit(*ranges[0])
     for nxt_range in ranges[1:] + [None]:
         nxt = submit(*nxt_range) if nxt_range else None
         cis, setups, pending = cur
+        t0 = time.perf_counter()
         out += emit_chunk(_fetch(*pending), cis, setups, slots)
+        secs["emit_s"] += time.perf_counter() - t0
         cur = nxt
+    if stats is not None:
+        for k, v in secs.items():
+            stats[k] = stats.get(k, 0.0) + v
+        stats.setdefault("chunk_ms", []).extend(
+            a.elapsed_time(b) for a, b in spans)
     return out

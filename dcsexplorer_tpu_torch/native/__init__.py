@@ -1,15 +1,16 @@
 """Native host runtime of the port: the C++ stream indexer and dense
-symbol decode, VM tracer and 1994+ encoder core.
+symbol decode, VM tracer, 1994+ encoder core and 1993 stream encoder.
 
 At first use, g++ builds ``build/torch_native/libdcs_host.so`` from
 ``src/dcs_native.cpp`` (the stream indexers of the 1994+ and the 1993
 families, and the 1994+ dense symbol decode of the host-decode hybrid,
 ``decode_dense``), ``src/tracer.cpp`` (the runtime VM tracer) and
-``src/encoder94.cpp`` (the 1994+ format search and symbol emission),
-with a table header that ``gen_tables`` writes from
+``src/encoder94.cpp`` (the 1994+ format search and symbol emission) and
+``src/encoder93.cpp`` (the 1993 stream encoder), with a table header that ``gen_tables`` writes from
 the port's own ``format/tables.py``.  It rebuilds when a source is newer
 than the library.  The flags are plain ``-O3`` without ``-march``, so one
-build runs on any x86-64 host.  A failed build raises: there is no Python
+build runs on any x86-64 host, and ``-ffp-contract=off``, so the 1993
+encoder's double error sums round as the JAX package's numpy does.  A failed build raises: there is no Python
 fallback behind this module.
 """
 
@@ -26,8 +27,8 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _REPO = os.path.dirname(os.path.dirname(_HERE))
 BUILD_DIR = os.path.join(_REPO, "build", "torch_native")
 LIB_PATH = os.path.join(BUILD_DIR, "libdcs_host.so")
-SOURCES = ("dcs_native.cpp", "tracer.cpp", "encoder94.cpp")
-GXX_FLAGS = ("-O3", "-fPIC", "-shared", "-std=c++17")
+SOURCES = ("dcs_native.cpp", "tracer.cpp", "encoder94.cpp", "encoder93.cpp")
+GXX_FLAGS = ("-O3", "-ffp-contract=off", "-fPIC", "-shared", "-std=c++17")
 
 _P, _I, _LL = C.c_void_p, C.c_int, C.c_longlong
 _SIGNATURES = {
@@ -59,6 +60,10 @@ _SIGNATURES = {
     # tz_code, tz_bits, out, out_cap
     "dcs94_emit_with_codes": (_LL, [_P, _I, _I] + [_P] * 4
                               + [_I, _P, _I, _I] + [_P] * 6 + [_P, _LL]),
+    # tx, F, fmt_type, bands_keep, counts, bstart, scales, max_err,
+    # huff_cw, huff_nb, out, out_cap
+    "dcs93_encode_stream": (_LL, [_P, _I, _I, _I] + [_P] * 3 + [C.c_double]
+                            + [_P] * 2 + [_P, _LL]),
 }
 
 _lib = None
@@ -167,6 +172,34 @@ def emit94_with_codes(ci, fs, codes, pidx, bands_keep):
         p(dval), p(dbits), p(cbc), p(cbb), p(tzc), p(tzb), p(out), cap)
     if n < 0:
         raise RuntimeError(f"native emit failed: {n}")
+    return out[:n].tobytes()
+
+
+def encode93_stream(tx, fmt_type, bands_keep, counts, bstart, scales,
+                    max_err, huff_cw, huff_nb):
+    """The native 1993 stream encode (src/encoder93.cpp): quantization, the
+    subtype-0 width search and the body emission in one call.  tx [F, 256]
+    float64 transmit-position coefficients; counts, bstart [16]; scales
+    [16] float64; huff_cw, huff_nb [64].  Returns the body bytes; raises on
+    failure."""
+    tx = np.ascontiguousarray(tx, dtype=np.float64)
+    F = tx.shape[0]
+    arrs = [np.ascontiguousarray(counts, dtype=np.int32),
+            np.ascontiguousarray(bstart, dtype=np.int32),
+            np.ascontiguousarray(scales, dtype=np.float64)]
+    tail = [np.ascontiguousarray(huff_cw, dtype=np.int32),
+            np.ascontiguousarray(huff_nb, dtype=np.int32)]
+    cap = F * 600 + 64
+    out = np.zeros(cap, dtype=np.uint8)
+
+    def p(a):
+        return a.ctypes.data_as(C.c_void_p)
+
+    n = get_lib().dcs93_encode_stream(
+        p(tx), F, int(fmt_type), int(bands_keep), *[p(a) for a in arrs],
+        float(max_err), *[p(a) for a in tail], p(out), cap)
+    if n < 0:
+        raise RuntimeError(f"native 93 encode failed: {n}")
     return out[:n].tobytes()
 
 

@@ -5,8 +5,9 @@ emit, DCSExplorer.cpp:1670-1739).  Raw .dcs: the "DCSa" interchange container
 (format spec: reference DCSExplorer/README.md:274-297).
 
 The port's copy of the WAV and raw-stream half of
-``dcsexplorer_tpu/utils/audioio.py``; the FLAC, MP3 and Ogg readers belong
-to the host encoder and are not carried."""
+``dcsexplorer_tpu/utils/audioio.py``, with its ``read_audio``.  The FLAC,
+MP3 and Ogg readers (with their native decoders) are not carried yet:
+``read_audio`` raises ValueError naming the format."""
 
 import struct
 
@@ -119,3 +120,28 @@ def is_dcs_raw(path):
             return f.read(4) == b"DCSa"
     except OSError:
         return False
+
+
+def read_audio(path_or_bytes):
+    """Read an audio input by magic bytes; returns (float32 mono array in
+    [-1, 1), sample_rate).
+
+    Supported: WAV (all common PCM layouts).  FLAC, MP3 and Ogg Vorbis
+    inputs, which the JAX package reads through its native decoders, raise
+    ValueError naming the format."""
+    if isinstance(path_or_bytes, (bytes, bytearray)):
+        head = bytes(path_or_bytes[:4])
+    else:
+        with open(path_or_bytes, "rb") as f:
+            head = f.read(4)
+    if head[:4] == b"RIFF":
+        return read_wav(path_or_bytes)
+    for name, magic in (("FLAC", head[:4] == b"fLaC"),
+                        ("MP3", head[:3] == b"ID3" or head[:2] in (
+                            b"\xff\xfb", b"\xff\xfa", b"\xff\xf3",
+                            b"\xff\xf2")),
+                        ("Ogg", head[:4] == b"OggS")):
+        if magic:
+            raise ValueError(f"{name} input is not supported by the port "
+                             "yet (supported: WAV)")
+    raise ValueError("unrecognized audio format (supported: WAV)")

@@ -12,12 +12,15 @@ transform93_pcm run.  It mirrors tests/test_catalog_e2e.py:
 - Flat93Pipeline's words against the JAX flat93*_pipeline_packed.
 Every comparison is bit for bit on & $FFFF."""
 
+import functools
 import inspect
 import os
 
 import numpy as np
 import pytest
 import torch
+
+import jax
 
 from dcsexplorer_tpu.models import catalogsweep as jcs
 from dcsexplorer_tpu.ops import decode93 as jd93
@@ -35,6 +38,16 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "assets", "streams")
 WIRES = {False: ["music_a.dcs93b", "music_b.dcs93a"],
          True: ["dense_t1.dcs93a1", "dense_t1b.dcs93a1"]}
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    # the plain versions run many small ops; beside other test workers, a
+    # thread pool per op costs more than it gives
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def _read(name):
@@ -159,7 +172,10 @@ def test_flat93_pipeline_matches_jax_pipeline_packed(t1):
     streams = [_read(n) for n in WIRES[t1]]
     ca = jcs.Flat93Sweep(streams, t1).compact_host_arrays()
     nwords = jcs.Flat93Sweep(streams, t1).nwords
-    want = np.asarray(jcs.run_flat93_pcm(ca, t1, nwords)) & 0xFFFF
+    # one jitted program, as jcs.run_flat93 runs it (op by op, the same
+    # function took ~25 s of dispatch and small compiles)
+    fn = jax.jit(functools.partial(jcs.run_flat93_pcm, t1=t1, nwords=nwords))
+    want = np.asarray(fn(ca)) & 0xFFFF
     pipe = tcs.Flat93Pipeline("cpu")
     assert set(dict(pipe.named_buffers())) >= {"pair", "cos", "br93_half"}
     before = dict(kernels.LAUNCHES)

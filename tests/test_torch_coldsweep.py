@@ -79,6 +79,16 @@ def _jax_chunks(chunk_streams, pool_len):
                                 cat("fmt_tab"), cat("sub_tab"), n_steps))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    # the plain versions run many small ops; beside other test workers, a
+    # thread pool per op costs more than it gives
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def whole():
     """The port's run_flat of CATALOG (int16), and the pool length every

@@ -162,6 +162,12 @@ dense, scale, fb_idx, valid, nf = batched.hybrid_host_stage(
 z = np.zeros((1, nf[0]), np.int32)
 assert batched.hybrid_batch_device(dense, scale, fb_idx, valid, z, z,
                                    device="cpu").shape == (1, nf[0], 240)
+import os, tempfile, zipfile
+from dcsexplorer_tpu_torch.tools import encoder_cli
+out = os.path.join(tempfile.mkdtemp(), "rom.zip")
+assert encoder_cli.main(["--script", "assets/example.dcss", "-o", out,
+                         "--device", "cpu", "-q"]) == 0
+assert "sound_u2.rom" in zipfile.ZipFile(out).namelist()
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "dcsexplorer_tpu"))
 assert not bad, bad
@@ -173,14 +179,14 @@ def test_port_never_imports_jax():
     # a fresh interpreter: this test process has jax and the JAX package
     # loaded.  After the port, chip_smoke, a CPU sweep, a served CPU
     # session batch, the explorer's --validate on the CPU, the sharded
-    # paths (dryrun_multichip on a mesh of two CPU entries) and the
-    # host-decode hybrid, neither jax nor any module of dcsexplorer_tpu may
-    # be loaded.
+    # paths (dryrun_multichip on a mesh of two CPU entries), the
+    # host-decode hybrid and a script compiled through the encoder CLI on
+    # the CPU, neither jax nor any module of dcsexplorer_tpu may be loaded.
     paths, _ = _streams()
     r = subprocess.run([sys.executable, "-c", _NO_JAX, paths[0]], cwd=REPO,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr
-    assert int(r.stdout.split()[-1]) >= 51      # every port module imported
+    assert int(r.stdout.split()[-1]) >= 62      # every port module imported
 
 
 # the JAX package named as a module: "dcsexplorer_tpu." or an import of it,

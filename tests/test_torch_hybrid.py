@@ -38,6 +38,8 @@ from dcsexplorer_tpu_torch.models import flatsweep as tfs
 from dcsexplorer_tpu_torch.ops import band_decode as bd
 from dcsexplorer_tpu_torch.ops import kernels
 
+from .torch_native_guard import reference_native_lib
+
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "assets", "streams")
 NAMES94 = ("chirpy", "music_a", "music_b", "noise_sweep", "sine_mix_1s",
@@ -66,8 +68,7 @@ def _t(a):
 
 @pytest.mark.parametrize("name", NAMES94)
 def test_decode_dense_matches_jax(name):
-    if jnative.get_lib() is None:
-        pytest.skip("the JAX package's native runtime did not build")
+    reference_native_lib()
     s = _read(name)
     got, want = native.decode_dense(s), jnative.decode_dense(s)
     assert got.n_frames == want.n_frames == (s[0] << 8) | s[1]

@@ -50,7 +50,9 @@ and sessions over a bank that grew between two calls; the host-decode
 hybrid's dense dequant/mix on random slots (duplicate indices, indices
 outside 0..511, prior buffers and active flags given and absent) and on
 the assets' native decode, and the hybrid against its plain path and the
-CPU with one launch of each kernel.  Every
+CPU with one launch of each kernel; a script compiled, and three WAVs
+encoded through the encoder CLI, on the card against the CPU, with one
+launch of each encoder kernel a parameter set.  Every
 comparison is bit for bit.  chip_smoke.py covers
 the real catalogs and the full-width session6 and session93a batches.
 """
@@ -1653,3 +1655,60 @@ def test_graft_entry_on_the_card(dev):
     cpu_step, cpu_args = graft_entry.entry("cpu")
     assert torch.equal(pcm.cpu(), cpu_step(*cpu_args))
     assert graft_entry.dryrun_multichip(4) == [dev] * 4
+
+
+def _script_inputs(d):
+    """Three WAVs (one at 44,100 Hz) and a script over two parameter
+    sets."""
+    from dcsexplorer_tpu_torch.utils import audioio
+    rng = np.random.default_rng(21)
+    for name, n, rate in (("a", 9000, 31250), ("b", 5000, 31250),
+                          ("c", 13000, 44100)):
+        t = np.arange(n) / rate
+        x = 7000 * np.sin(2 * np.pi * 400 * t) + rng.normal(0, 300, n)
+        audioio.write_wav(d / f"{name}.wav", x.astype(np.int16), rate)
+    (d / "s.dcss").write_text(
+        'Default encoding parameters (BitRate=128000);\n'
+        'Stream A "a.wav";\nStream B "b.wav" (BitRate=96000);\n'
+        'Stream C "c.wav";\n'
+        'Track $0001 channel 0 { Play(A); Wait(stream); Play(C); '
+        'Wait(stream); };\n'
+        'Track $0002 channel 1 { Play(B); Wait(stream); };\n')
+    return str(d / "s.dcss")
+
+
+def test_script_compile_on_the_card_equals_the_cpu(dev, tmp_path):
+    import io
+    import zipfile
+    from dcsexplorer_tpu_torch.compiler import script
+    path = _script_inputs(tmp_path)
+    before = dict(kernels.LAUNCHES)
+    stats = {}
+    card, report = script.compile_script_file(path, stats=stats)
+    torch.cuda.synchronize()
+    # two parameter sets: one chunk each
+    assert _launched(before) == {"encode94_analyze": 2, "encode94_decide": 2,
+                                 "encode94_select": 2}
+    assert len(stats["chunk_ms"]) == 2
+    cpu, cpu_report = script.compile_script_file(path, device="cpu")
+    images = [{n: z.read(n) for n in z.namelist()}
+              for z in (zipfile.ZipFile(io.BytesIO(b)) for b in (card, cpu))]
+    assert images[0] == images[1] and report == cpu_report
+
+
+def test_encoder_cli_on_the_card_equals_the_cpu(dev, tmp_path):
+    from dcsexplorer_tpu_torch.tools import encoder_cli
+    _script_inputs(tmp_path)
+    wavs = [str(tmp_path / f"{n}.wav") for n in "abc"]
+    outs = {}
+    for key, extra in (("card", []), ("cpu", ["--device", "cpu"])):
+        d = tmp_path / key
+        d.mkdir()
+        before = dict(kernels.LAUNCHES)
+        assert encoder_cli.main(wavs + ["-o", str(d)] + extra) == 0
+        torch.cuda.synchronize()
+        assert _launched(before) == ({} if key == "cpu" else {
+            "encode94_analyze": 1, "encode94_decide": 1,
+            "encode94_select": 1})
+        outs[key] = {n: (d / n).read_bytes() for n in os.listdir(d)}
+    assert outs["card"] == outs["cpu"] and len(outs["cpu"]) == 3

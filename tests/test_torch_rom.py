@@ -41,11 +41,11 @@ ROM_FIELDS = ("chip_sizes", "is_dummy", "catalog_ofs", "n_tracks",
               "nominal_version", "game_id")
 
 
-def session6_spec():
+def session6_spec(g=romgen):
     """bench.py's session6 ROM (bench_session6): music_a, music_b and the
     four legacy .dcs94 streams; track 0 ends, tracks 1-6 each set a level
-    and play one stream forever on its own channel."""
-    g = romgen
+    and play one stream forever on its own channel.  g: the romgen module
+    that builds it (the JAX package's, or the port's)."""
     names = ["music_a", "music_b", "sine_mix_1s", "noise_sweep", "tone_low",
              "chirpy"]
     spec = g.RomSpec(os_version=jrd.OS94, num_channels=6)

@@ -46,10 +46,21 @@ from dcsexplorer_tpu_torch.rom import zipload as tzip
 from dcsexplorer_tpu_torch.vm import native_tracer as tnt
 
 from .test_romgen import _make_spec
+from .torch_native_guard import reference_native_lib
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "assets", "streams")
 NAMES = sorted(n for n in os.listdir(ASSETS) if n.endswith(".dcs94"))
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    # the plain versions run many small ops; beside other test workers, a
+    # thread pool per op costs more than it gives
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -323,6 +334,7 @@ def test_segments_plain_inverts_compress_controls(roms, bank):
 
 
 def test_native_segment_trace_matches_jax(roms, bank, jax_bank):
+    reference_native_lib()
     rs_j, rs_t = roms
     tab_t = tnt.stream_row_table(rs_t, bank)
     tab_j = jnt.stream_row_table(rs_j, jax_bank)

@@ -88,6 +88,17 @@ def _load(data):
     return rs_j, rs_t
 
 
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    # the plain versions run many small ops; beside other test workers, a
+    # thread pool per op costs more than it gives (the session server's
+    # test took 3 s alone and 90-260 s beside busy workers)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
+
+
 @pytest.fixture(scope="module")
 def roms():
     """name -> (JAX RomSet, port RomSet) of the three 1993 ROMs."""
