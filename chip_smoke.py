@@ -3,8 +3,9 @@
 (warm and cold, and the cold mixed-family catalog) and the ROM session
 paths of the 1994+ and the 1993 families, the on-device 1994+ encoder,
 the explorer CLI's decode commands, the sharded paths over a mesh of
-one card's streams and the host-decode hybrid (dcsexplorer_tpu_torch) end
-to end,
+one card's streams, the host-decode hybrid, the ROM compiler and encoder
+CLI with FLAC, MP3 and Ogg inputs, and the ADSP-2105 emulator held against
+the card's sessions (dcsexplorer_tpu_torch) end to end,
 through their hand-written kernels, with torch.profiler traces of three of
 those paths.
 
@@ -13,7 +14,9 @@ those paths.
 Phases (one line each or more; any failure raises and the exit code is
 non-zero):
   1. the card's name and power limit; build the CUDA kernels from csrc/
-     and the port's native host runtime (prescan, VM tracer)
+     and the port's native host runtime (prescan, VM tracer, encoders,
+     the FLAC/MP3/Ogg decoders, the emulator core: one g++ a source, in
+     parallel), each build's wall time, the host one alone after nvcc
   2. pack the flat94_music catalog (music_a/b.dcs94 x 144: 288 streams)
   3. each kernel against its plain PyTorch version on the card, at that
      catalog's real intermediates, bit for bit; both timed with CUDA events,
@@ -209,15 +212,35 @@ non-zero):
      preparation and emission ms; each chunk's device ms (CUDA events
      around its launches); the layout ms; the compile's wall time and x
      realtime, beside the card's name and power limit
+ 21. the FLAC, MP3 and Ogg readers and the emulator: the committed
+     dcsexplorer_tpu_torch/data/reader_input.{flac,mp3,ogg} read by the
+     port's readers (decode ms, 3 reads each), each equal to the PCM
+     pinned in reader_inputs.json; encoder_cli.main on the three and a WAV
+     at 44,100 Hz with no --device (the card) with the counters at 0: one
+     launch of each encoder kernel, every stream byte-identical with the
+     host encode_pcm of the reader's PCM; a script naming the three on
+     tracks of their own, compiled likewise (one launch each), each
+     track's stream the host encode's.  Then 4 tracks of phase 20's set
+     (firmware94) and of session93a.zip (firmware93), 250 frames each with
+     version queries and a volume command: EmulatedDecoder (the native
+     core) strict and fast against play_session on the card (the counters
+     of decode94_bank and session_mix94, or decode93_pcm_carry, must
+     move), bit-exact in PCM and data-port bytes, the emulator's frames/s
+     and x realtime on the host; python -m dcsexplorer_tpu_torch.tools.
+     explorer <phase 20's set> --extract-tracks --backend emulator-strict
+     --max-track-frames 60 as a subprocess, its 240 WAVs byte-identical
+     with --backend cuda's in process.  Each number beside the card's name
+     and power limit
 Then the script's wall time, one JSON line of per-kernel results
-(launches: over all eleven paths, each path's own printed in phases 4, 7,
-10, 11, 13, 14, 15, 17, 18, 19 and 20), and last the {"ok": true, ...}
+(launches: over all twelve paths, each path's own printed in phases 4, 7,
+10, 11, 13, 14, 15, 17, 18, 19, 20 and 21), and last the {"ok": true, ...}
 line.
 There is no CPU path: without a CUDA device the script exits 1.
 """
 
 import contextlib
 import glob
+import hashlib
 import io
 import json
 import os
@@ -234,6 +257,7 @@ SESSION6_ZIP = os.path.join(HERE, "dcsexplorer_tpu_torch", "data",
                             "session6.zip")
 SESSION93A_ZIP = os.path.join(HERE, "dcsexplorer_tpu_torch", "data",
                               "session93a.zip")
+DATA = os.path.join(HERE, "dcsexplorer_tpu_torch", "data")
 SESSIONS, SESSION_FRAMES, VOICES, SEG_E = 320, 1000, 6, 32   # bench.py session6
 COPIES93 = 72                  # x 2 streams: bench.py's dec93b and dec93a_t1
 REF_FRAMES = 250               # frames held against the scalar decoder
@@ -421,15 +445,17 @@ def main():
     t0 = time.perf_counter()
     report = kernels.build()
     kernels.load()
+    kernels_s = time.perf_counter() - t0
     used = [ln.strip() for ln in report.splitlines()
             if "Used" in ln or "spill" in ln]
-    print(f"phase 1 build: {time.perf_counter() - t0:.3f} s, "
+    print(f"phase 1 build: {kernels_s:.3f} s, "
           f"torch {torch.__version__} cuda {torch.version.cuda}; "
           + " | ".join(used))
+    # the host runtime's build on its own, after nvcc's
     t0 = time.perf_counter()
     native.get_lib()
-    print(f"phase 1 host runtime {native.LIB_PATH}: "
-          f"{time.perf_counter() - t0:.3f} s")
+    print(f"phase 1 host runtime {native.LIB_PATH} ({len(native.SOURCES)} "
+          f"sources, built alone): {time.perf_counter() - t0:.3f} s")
 
     # 2. the flat94_music catalog
     music = [_read(os.path.join(STREAMS, n))
@@ -2505,7 +2531,215 @@ def main():
           f"its 6 streams ({patch_s:.3f} s): the other 2 the prototype's "
           f"bytes, the {n_rep} the host encode; phase wall "
           f"{time.perf_counter() - t20:.1f} s")
+
+    # 21. the FLAC, MP3 and Ogg readers into the card's encoder path, and
+    # the ADSP-2105 emulator (emu/) against the card's session PCM
+    t21 = time.perf_counter()
+    from dcsexplorer_tpu_torch.emu.board import EmulatedDecoder
+    work21 = os.path.join(HERE, "build", "chip_smoke_readers")
+    shutil.rmtree(work21, ignore_errors=True)
+    os.makedirs(work21)
+    with open(os.path.join(DATA, "reader_inputs.json")) as f:
+        pins = json.load(f)
+    inputs21, read_ms = [], {}
+    for name in sorted(pins):
+        ext = name.rsplit(".", 1)[1]
+        path = os.path.join(work21, f"in_{ext}.{ext}")
+        shutil.copyfile(os.path.join(DATA, name), path)
+        read_ms[ext] = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            audio, rate = audioio.read_audio(path)
+            read_ms[ext].append(1e3 * (time.perf_counter() - t0))
+        a = np.ascontiguousarray(audio, dtype=np.float32)
+        got = {"rate": int(rate), "samples": int(a.size),
+               "sha256": hashlib.sha256(a.tobytes()).hexdigest()}
+        if got != pins[name]:
+            raise AssertionError(f"{name}: the reader's PCM {got} != the "
+                                 f"pinned {pins[name]}")
+        inputs21.append(path)
+    (wav_pcm, wav_rate), = enc_jobs(1, rates=(44100,))[0]
+    inputs21.append(os.path.join(work21, "in_wav.wav"))
+    audioio.write_wav(inputs21[-1], wav_pcm, wav_rate)
+    print(f"phase 21 readers ({smi.splitlines()[0]}): "
+          + "; ".join(f"{ext} {pins[n]['samples']} samples at "
+                      f"{pins[n]['rate']} Hz, decode ms ["
+                      + fmt3(read_ms[ext]) + "]"
+                      for n, ext in zip(sorted(pins), read_ms))
+          + "; each equal to the PCM pinned in reader_inputs.json")
+    # the encoder CLI on the three files and one WAV, on the card (no
+    # --device): one chunk, one launch of each encoder kernel
+    cli_out = os.path.join(work21, "cli")
+    os.makedirs(cli_out)
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = encoder_cli.main([*inputs21, "-o", cli_out])
+    cli_s = time.perf_counter() - t0
+    c21 = dict(kernels.LAUNCHES)
+    if rc != 0 or any(c21[k] != 1 for k in on_enc_path):
+        raise AssertionError(f"encoder_cli on the reader inputs exited {rc}, "
+                             f"launches {c21}")
+    host21 = {}
+    for path in inputs21:
+        host21[path] = host_stream(path, 128000)
+        stem = os.path.splitext(os.path.basename(path))[0]
+        got, _ = audioio.read_dcs_raw(os.path.join(cli_out, stem + ".dcs"))
+        if got != host21[path]:
+            raise AssertionError(f"{stem}: the card's stream != the host "
+                                 f"encode_pcm of the reader's PCM")
+    # a script naming the three files on tracks of their own
+    with open(os.path.join(work21, "readers.dcss"), "w") as f:
+        f.write("Default encoding parameters (BitRate=128000);\n")
+        for k, path in enumerate(inputs21[:3]):
+            f.write(f'Stream R{k} "{os.path.basename(path)}";\n')
+        for k in range(3):
+            f.write(f"Track ${k + 1:04X} channel {k} {{ Play(R{k}); "
+                    f"Wait(stream); }};\n")
+    zip21 = os.path.join(work21, "readers.zip")
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = encoder_cli.main(["--script", os.path.join(work21,
+                                                        "readers.dcss"),
+                               "-o", zip21, "-q"])
+    script21_s = time.perf_counter() - t0
+    sc21 = dict(kernels.LAUNCHES)
+    if rc != 0 or any(sc21[k] != 1 for k in on_enc_path):
+        raise AssertionError(f"encoder_cli --script of the reader inputs "
+                             f"exited {rc}, launches {sc21}")
+    rs21, _ = zipload.load_zip_file(zip21)
+    if rs21.check() != 1:
+        raise AssertionError("the readers' ROM fails its checks")
+    for k, path in enumerate(inputs21[:3]):
+        if track_bytes(rs21, k + 1, len(host21[path])) != host21[path]:
+            raise AssertionError(f"the readers' ROM, track {k + 1}: its "
+                                 f"stream != the host encode_pcm")
+    print(f"phase 21 encoder_cli on {len(inputs21)} inputs (flac, mp3, ogg, "
+          f"wav at 44,100 Hz) on the card ({smi.splitlines()[0]}): "
+          f"{cli_s:.3f} s wall, launches "
+          f"{dict((k, c21[k]) for k in on_enc_path)}, every stream "
+          f"byte-identical with the host encode_pcm; --script naming the "
+          f"three: compile {script21_s:.3f} s wall, launches "
+          f"{dict((k, sc21[k]) for k in on_enc_path)}, each track's stream "
+          f"the host encode_pcm's")
+
+    # the emulator, strict and fast, against the card's sessions: 4 tracks
+    # of phase 20's set (firmware94) and of session93a.zip (firmware93),
+    # REF_FRAMES frames each, with version queries and a volume command
+    def events21(t):
+        return {0: [t >> 8, t & 0xFF], 10: [0x55, 0xC2], 20: [0x55, 0xC3],
+                30: [0x55, 0xAA, 0x50, 0xAF]}
+
+    def emulate(rs, t, fast):
+        dec = EmulatedDecoder(enable_speedup=fast)
+        dec.default_volume = 0x67
+        dec.load_rom_set(rs)
+        dec.soft_boot()
+        if dec.state != rd.ST_RUNNING or not dec.native_cpu or (
+                fast and dec.speedup_info is None):
+            raise AssertionError(f"the emulator did not start: "
+                                 f"{dec.error_message}")
+        out = []
+        for f in range(REF_FRAMES):
+            for byte in events21(t).get(f, ()):
+                dec.write_data_port(byte)
+            out.extend(dec.next_samples(240))
+        return np.array(out, dtype=np.int16), list(dec.host.rx)
+
+    rs93, _ = zipload.load_zip_file(SESSION93A_ZIP)
+    rs93.check()
+    emu_rate, emu21 = {}, {}
+    for label, rs, tracks, want in (
+            ("phase 20's set", rs20,
+             [1 + k * (ROM_FILES - 1) // 3 for k in range(4)],
+             ("decode94_bank", "session_mix94")),
+            ("session93a.zip", rs93, [1, 2, 3, 4],
+             ("decode93_pcm_carry",))):
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        bank = romplay.build_rom_bank(rs, dev)
+        card = []
+        for t in tracks:
+            ev = {f: (lambda dec, bs=bs: [dec.write_data_port(b)
+                                          for b in bs])
+                  for f, bs in events21(t).items()}
+            pcm, tracer = romplay.play_session(rs, ev, REF_FRAMES, bank=bank)
+            card.append((pcm, list(tracer.host.rx)))
+        torch.cuda.synchronize()
+        e21 = dict(kernels.LAUNCHES)
+        emu21[label] = e21
+        if not all(e21[k] > 0 for k in want):
+            raise AssertionError(f"{label}: a kernel of the card's sessions "
+                                 f"did not launch: {e21}")
+        del bank
+        for fast in (False, True):
+            t0 = time.perf_counter()
+            got = [emulate(rs, t, fast) for t in tracks]
+            wall = time.perf_counter() - t0
+            mode = "fast" if fast else "strict"
+            emu_rate[label, mode] = len(tracks) * REF_FRAMES / wall
+            for t, (pcm, rx), (cpcm, crx) in zip(tracks, got, card):
+                if not np.array_equal(pcm, cpcm) or rx != crx:
+                    bad = np.nonzero(pcm != cpcm)[0]
+                    raise AssertionError(
+                        f"{label}, track {t}: emulator-{mode} != the card: "
+                        f"{bad.size} samples differ (first "
+                        f"{bad[:1].tolist()}), port bytes {rx} vs {crx}")
+                if not np.abs(pcm.astype(np.int32)).max() > 0 or not rx:
+                    raise AssertionError(f"{label}, track {t}: silent or "
+                                         f"no port bytes")
+        print(f"phase 21 emulator vs the card on {label}, tracks {tracks}, "
+              f"{REF_FRAMES} frames each: emulator-strict, emulator-fast and "
+              f"play_session bit-exact in PCM and data-port bytes "
+              f"({card[0][1]}); card launches "
+              f"{dict((k, v) for k, v in e21.items() if v)}")
+    print(f"phase 21 emulator rate on the host ({smi.splitlines()[0]}): "
+          + "; ".join(f"{label} {mode} {r:.0f} frames/s = "
+                      f"{r * 240 / 31250:.1f}x realtime"
+                      for (label, mode), r in emu_rate.items()))
+    # the explorer's extraction: --backend emulator-strict as a subprocess
+    # against --backend cuda in process, WAV for WAV
+    x21 = os.path.join(work21, "x")
+    for d in ("emu", "card"):
+        os.makedirs(os.path.join(x21, d))
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "dcsexplorer_tpu_torch.tools.explorer",
+         out_zip, "--extract-tracks", os.path.join(x21, "emu", "t"),
+         "--backend", "emulator-strict", "--max-track-frames", "60"],
+        cwd=HERE, capture_output=True, text=True, timeout=600)
+    xemu_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"explorer --backend emulator-strict: rc "
+                             f"{r.returncode}\n{r.stderr}")
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    xcard_s, _ = cli([out_zip, "--extract-tracks", os.path.join(x21, "card",
+                                                                "t"),
+                      "--max-track-frames", "60"])
+    x21c = dict(kernels.LAUNCHES)
+    emu_wavs = wavs(os.path.join(x21, "emu", "t"))
+    card_wavs = wavs(os.path.join(x21, "card", "t"))
+    if len(emu_wavs) != ROM_FILES or emu_wavs != card_wavs:
+        raise AssertionError(f"explorer --extract-tracks: {len(emu_wavs)} "
+                             f"emulator WAVs, {len(card_wavs)} card WAVs, "
+                             f"not byte-identical")
+    print(f"phase 21 python -m dcsexplorer_tpu_torch.tools.explorer "
+          f"<phase 20's set> --extract-tracks --backend emulator-strict "
+          f"--max-track-frames 60: {len(emu_wavs)} WAVs byte-identical with "
+          f"--backend cuda's ({smi.splitlines()[0]}: {xemu_s:.3f} s with the "
+          f"interpreter's start, against {xcard_s:.3f} s in process on the "
+          f"card, launches {dict((k, v) for k, v in x21c.items() if v)}); "
+          f"phase "
+          f"wall {time.perf_counter() - t21:.1f} s")
+    for k, r in results.items():
+        r["launches"] += (c21[k] + sc21[k] + x21c[k]
+                          + sum(e[k] for e in emu21.values()))
     shutil.rmtree(work, ignore_errors=True)
+    shutil.rmtree(work21, ignore_errors=True)
 
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))

@@ -1,21 +1,32 @@
 """Native host runtime of the port: the C++ stream indexer and dense
-symbol decode, VM tracer, 1994+ encoder core and 1993 stream encoder.
+symbol decode, VM tracer, 1994+ encoder core, 1993 stream encoder, the
+FLAC / MP3 / Ogg Vorbis input decoders and the ADSP-2105 emulator core.
 
 At first use, g++ builds ``build/torch_native/libdcs_host.so`` from
 ``src/dcs_native.cpp`` (the stream indexers of the 1994+ and the 1993
 families, and the 1994+ dense symbol decode of the host-decode hybrid,
-``decode_dense``), ``src/tracer.cpp`` (the runtime VM tracer) and
-``src/encoder94.cpp`` (the 1994+ format search and symbol emission) and
-``src/encoder93.cpp`` (the 1993 stream encoder), with a table header that ``gen_tables`` writes from
-the port's own ``format/tables.py``.  It rebuilds when a source is newer
-than the library.  The flags are plain ``-O3`` without ``-march``, so one
-build runs on any x86-64 host, and ``-ffp-contract=off``, so the 1993
-encoder's double error sums round as the JAX package's numpy does.  A failed build raises: there is no Python
+``decode_dense``), ``src/tracer.cpp`` (the runtime VM tracer),
+``src/encoder94.cpp`` (the 1994+ format search and symbol emission),
+``src/encoder93.cpp`` (the 1993 stream encoder), ``src/flac.cpp``,
+``src/mp3.cpp`` and ``src/vorbis.cpp`` (the audio readers of
+``utils/audioio.py``, with their committed table headers
+``src/mp3_tables.h`` and ``src/vorbis_tables.h``) and ``src/adsp2105.cpp``
+(the emulator's CPU core with the DCS board map, ``emu/native_cpu.py``),
+with a table header that ``gen_tables`` writes from the port's own
+``format/tables.py``.  The audio decoders and the emulator core are
+byte-identical copies of the JAX package's sources.  One g++ compiles
+each source, all started together, and one links them.  It rebuilds when
+a source is newer than the library.  The flags are plain ``-O3`` without
+``-march``, so one build runs on any x86-64 host, and
+``-ffp-contract=off``, so the 1993 encoder's double error sums round as
+the JAX package's numpy does.  A failed build raises: there is no Python
 fallback behind this module.
 """
 
 import ctypes as C
+import fcntl
 import os
+import shutil
 import subprocess
 from concurrent.futures import ThreadPoolExecutor
 
@@ -27,10 +38,16 @@ _HERE = os.path.dirname(os.path.abspath(__file__))
 _REPO = os.path.dirname(os.path.dirname(_HERE))
 BUILD_DIR = os.path.join(_REPO, "build", "torch_native")
 LIB_PATH = os.path.join(BUILD_DIR, "libdcs_host.so")
-SOURCES = ("dcs_native.cpp", "tracer.cpp", "encoder94.cpp", "encoder93.cpp")
+SOURCES = ("dcs_native.cpp", "tracer.cpp", "encoder94.cpp", "encoder93.cpp",
+           "flac.cpp", "mp3.cpp", "vorbis.cpp", "adsp2105.cpp")
+HEADERS = ("mp3_tables.h", "vorbis_tables.h")
 GXX_FLAGS = ("-O3", "-ffp-contract=off", "-fPIC", "-shared", "-std=c++17")
 
 _P, _I, _LL = C.c_void_p, C.c_int, C.c_longlong
+# the emulator board's callbacks: read the data port, write it, set the bank
+READ_PORT = C.CFUNCTYPE(C.c_uint16)
+WRITE_PORT = C.CFUNCTYPE(None, C.c_uint16)
+SET_BANK = C.CFUNCTYPE(None, C.c_uint32)
 _SIGNATURES = {
     "dcs94_frame_count": (C.c_int, [C.c_char_p, _I, _I]),
     "dcs94_decode_dense": (C.c_int, [C.c_char_p, _I, _I] + [_P] * 10),
@@ -64,6 +81,46 @@ _SIGNATURES = {
     # huff_cw, huff_nb, out, out_cap
     "dcs93_encode_stream": (_LL, [_P, _I, _I, _I] + [_P] * 3 + [C.c_double]
                             + [_P] * 2 + [_P, _LL]),
+    # data, len, meta[4] (rate, channels, bits, -), total[1]
+    "flac_info": (_I, [C.c_char_p, C.c_int64, _P, _P]),
+    "flac_decode": (C.c_int64, [C.c_char_p, C.c_int64, _P, C.c_int64]),
+    # data, len, meta[4] (rate, channels, frames, -)
+    "mp3_info": (_I, [C.c_char_p, C.c_int64, _P]),
+    "mp3_decode": (C.c_int64, [C.c_char_p, C.c_int64, _P, C.c_int64]),
+    # data, len, meta[4] (rate, channels, -, -)
+    "vorbis_probe": (_I, [C.c_char_p, C.c_int64, _P]),
+    "vorbis_decode": (C.c_int64, [C.c_char_p, C.c_int64, _P, C.c_int64]),
+    "vorbis_imdct_selftest": (C.c_double, [_I, _P, _P, _P]),
+    # the ADSP-2105 core with the DCS board map (emu/native_cpu.py)
+    "adsp_new": (_P, []),
+    "adsp_free": (None, [_P]),
+    "adsp_reset": (None, [_P]),
+    "adsp_get_state": (None, [_P, _P]),
+    "adsp_set_state": (None, [_P, _P]),
+    "adsp_config_board": (None, [_P, _I, READ_PORT, WRITE_PORT, SET_BANK]),
+    "adsp_set_bank_window": (None, [_P, _P, C.c_int64]),
+    "adsp_get_pm": (C.c_uint32, [_P, _I]),
+    "adsp_set_pm": (None, [_P, _I, C.c_uint32]),
+    "adsp_read_pm_block": (None, [_P, _I, _I, _P]),
+    "adsp_write_pm_block": (None, [_P, _I, _I, _P]),
+    "adsp_get_dm": (C.c_uint16, [_P, _I]),
+    "adsp_set_dm": (None, [_P, _I, C.c_uint32]),
+    "adsp_read_dm_block": (None, [_P, _I, _I, _P]),
+    "adsp_write_dm_block": (None, [_P, _I, _I, _P]),
+    "adsp_read_dm_strided": (None, [_P, _I, _I, _I, _P]),
+    "adsp_run": (C.c_int64, [_P, C.c_int64]),
+    "adsp_step": (_I, [_P]),
+    "adsp_stopped": (_I, [_P]),
+    "adsp_set_stopped": (None, [_P, _I]),
+    "adsp_take_reset_request": (_I, [_P]),
+    "adsp_get_pc": (C.c_uint32, [_P]),
+    "adsp_set_pc": (None, [_P, C.c_uint32]),
+    "adsp_invoke_irq": (C.c_int64, [_P, _I, _I, C.c_int64]),
+    "adsp_get_autobuffer": (None, [_P, _P]),
+    "adsp_set_autobuffer": (None, [_P, C.c_int32, C.c_int32, C.c_int32]),
+    "adsp_rword_pgm": (C.c_uint32, [_P, C.c_uint32]),
+    "adsp_set_speedup": (None, [_P, _I, _I, _I, _P, _I]),
+    "adsp_accel_run": (None, [_P, _I, _P, _I]),
 }
 
 _lib = None
@@ -71,20 +128,47 @@ _lib = None
 
 def build():
     """Compile the library unless it is newer than every source and the
-    table generator.  Returns True when it compiled.  Raises on failure."""
+    table generator.  Returns True when it compiled.  Raises on failure.
+    One process builds at a time (a lock file beside the library); one
+    that waited finds the library fresh and returns."""
     srcs = [os.path.join(_HERE, "src", f) for f in SOURCES]
-    deps = srcs + [gen_tables.__file__, gen_tables.T.__file__]
-    if (os.path.exists(LIB_PATH)
-            and os.path.getmtime(LIB_PATH) >= max(map(os.path.getmtime, deps))):
+    deps = srcs + [os.path.join(_HERE, "src", f) for f in HEADERS] + [
+        gen_tables.__file__, gen_tables.T.__file__]
+
+    def fresh():
+        return (os.path.exists(LIB_PATH) and os.path.getmtime(LIB_PATH)
+                >= max(map(os.path.getmtime, deps)))
+
+    if fresh():
         return False
-    inc = os.path.join(BUILD_DIR, "inc")
-    gen_tables.emit(os.path.join(inc, "dcs_tables.h"))
-    tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
-    r = subprocess.run(["g++", *GXX_FLAGS, f"-I{inc}", *srcs, "-o", tmp],
-                       capture_output=True, text=True)
-    if r.returncode != 0:
-        raise RuntimeError(f"g++ failed ({r.returncode}):\n{r.stderr}")
-    os.replace(tmp, LIB_PATH)
+    os.makedirs(BUILD_DIR, exist_ok=True)
+    with open(os.path.join(BUILD_DIR, "build.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if fresh():
+            return False
+        inc = os.path.join(BUILD_DIR, "inc")
+        gen_tables.emit(os.path.join(inc, "dcs_tables.h"))
+        tmp = f"{LIB_PATH}.{os.getpid()}.tmp"
+        obj_dir = f"{tmp}.o"
+        os.makedirs(obj_dir, exist_ok=True)
+        objs = [os.path.join(obj_dir, f + ".o") for f in SOURCES]
+        try:
+            procs = [subprocess.Popen(
+                ["g++", *GXX_FLAGS, f"-I{inc}", "-c", s, "-o", o],
+                stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+                for s, o in zip(srcs, objs)]
+            errs = [p.communicate()[1] for p in procs]
+            for p, err in zip(procs, errs):
+                if p.returncode != 0:
+                    raise RuntimeError(f"g++ failed ({p.returncode}):\n{err}")
+            r = subprocess.run(["g++", *GXX_FLAGS, *objs, "-o", tmp],
+                               capture_output=True, text=True)
+            if r.returncode != 0:
+                raise RuntimeError(
+                    f"g++ failed ({r.returncode}):\n{r.stderr}")
+        finally:
+            shutil.rmtree(obj_dir, ignore_errors=True)
+        os.replace(tmp, LIB_PATH)
     return True
 
 
@@ -258,3 +342,80 @@ def decode_dense_batch(streams):
     workers = min(16, os.cpu_count() or 4)
     with ThreadPoolExecutor(max_workers=workers) as ex:
         return list(ex.map(decode_dense, streams))
+
+
+def flac_decode(data):
+    """Decode a FLAC file (src/flac.cpp).  Returns (samples [N, channels]
+    int32, rate, bits).  Raises ValueError on malformed input."""
+    lib = get_lib()
+    buf = bytes(data)
+    meta = np.zeros(4, dtype=np.int32)
+    total = np.zeros(1, dtype=np.int64)
+    rc = lib.flac_info(buf, len(buf), meta.ctypes.data_as(C.c_void_p),
+                       total.ctypes.data_as(C.c_void_p))
+    if rc != 0:
+        raise ValueError(f"malformed FLAC file (error {rc})")
+    rate, nch, bits, _ = (int(x) for x in meta)
+    cap = int(total[0]) * nch if total[0] else 0
+    if cap == 0:
+        cap = max(len(buf) * 4, 1 << 20)   # unknown length: generous bound
+    for _ in range(4):
+        out = np.zeros(cap, dtype=np.int32)
+        n = lib.flac_decode(buf, len(buf), out.ctypes.data_as(C.c_void_p),
+                            cap)
+        if n == -3:
+            cap *= 4
+            continue
+        if n < 0:
+            raise ValueError(f"malformed FLAC file (error {n})")
+        # the frame walker stops at the first bad sync; if STREAMINFO
+        # recorded a length, a short decode means corruption, not EOF
+        if total[0] and n != int(total[0]) * nch:
+            raise ValueError(
+                f"truncated or corrupt FLAC: decoded {n // max(nch, 1)} of "
+                f"{int(total[0])} samples")
+        return out[:n].reshape(-1, nch), rate, bits
+    raise ValueError("FLAC decode exceeded the output bound")
+
+
+def mp3_decode(data):
+    """Decode an MPEG-1 Layer III file (src/mp3.cpp).  Returns (samples
+    [N, channels] int16, rate).  Raises ValueError on malformed or
+    unsupported input."""
+    lib = get_lib()
+    buf = bytes(data)
+    meta = np.zeros(4, dtype=np.int32)
+    rc = lib.mp3_info(buf, len(buf), meta.ctypes.data_as(C.c_void_p))
+    if rc == -2:
+        raise ValueError("unsupported MPEG flavor (MPEG-1 Layer III only)")
+    if rc != 0:
+        raise ValueError(f"malformed MP3 file (error {rc})")
+    rate, nch, frames, _ = (int(x) for x in meta)
+    cap = (frames + 2) * 1152 * nch
+    out = np.zeros(cap, dtype=np.int16)
+    n = lib.mp3_decode(buf, len(buf), out.ctypes.data_as(C.c_void_p), cap)
+    if n < 0:
+        raise ValueError(f"malformed MP3 file (error {n})")
+    return out[:n].reshape(-1, nch), rate
+
+
+def vorbis_decode(data):
+    """Decode an Ogg Vorbis file (src/vorbis.cpp).  Returns (samples
+    [N, channels] float32, rate).  Raises ValueError on malformed
+    input."""
+    lib = get_lib()
+    buf = bytes(data)
+    meta = np.zeros(4, dtype=np.int32)
+    rc = lib.vorbis_probe(buf, len(buf), meta.ctypes.data_as(C.c_void_p))
+    if rc != 0:
+        raise ValueError("malformed Ogg Vorbis file")
+    rate, nch = int(meta[0]), int(meta[1])
+    total = lib.vorbis_decode(buf, len(buf), None, 0)
+    if total < 0:
+        raise ValueError("malformed Ogg Vorbis file")
+    out = np.zeros(int(total) * nch, dtype=np.float32)
+    n = lib.vorbis_decode(buf, len(buf), out.ctypes.data_as(C.c_void_p),
+                          total)
+    if n < 0:
+        raise ValueError("malformed Ogg Vorbis file")
+    return out[:int(n) * nch].reshape(-1, nch), rate

@@ -1,17 +1,23 @@
 """Decoder backend registry with prefix matching.
 
-The port's copy of ``dcsexplorer_tpu/refdec/registry.py``.
-
 Counterpart of the reference's Registration/factory system
 (reference: DCSDecoder.cpp:1955-1974) and the explorer's `--decoder`
 selection logic (reference: DCSExplorer/DCSExplorer.cpp:458-537): backends
 register under a name, and a caller selects one by exact name or unique
 leading prefix (case-insensitive).
 
-The port registers one backend, the native scalar decoder.  The JAX
-package's two emulator backends run the original ROM firmware on its
-ADSP-2105 interpreter (``emu/``), which the port does not carry: their
-names resolve here as unknown backends.
+The port's copy of ``dcsexplorer_tpu/refdec/registry.py``; its emulator
+backends run the port's ``emu/`` (tests/test_torch_emu.py).
+
+Like the reference, three backends register: the native decoder, the
+strict-mode emulator, and the emulator with the "speedup" fast mode
+(the reference's counterpart: PinMame-derived native IFFT inner loops,
+DCSDecoderEmu.cpp:644-889; ours: signature-detected transform regions
+executed by the CPU core's accelerator, emu/speedup.py).  The fast mode
+is verifiable in-repo because the synthesized decoding firmware carries
+detectable transform code — tests/test_emu_speedup.py asserts fast ≡
+strict ≡ native PCM.  Validation paths keep using strict mode, exactly
+as the reference does (DCSExplorer.cpp:1033-1036).
 """
 
 
@@ -68,6 +74,13 @@ def create(prefix, host=None):
 def _ensure_builtin():
     if "native" in _REGISTRY:
         return
+    from ..emu.board import EmulatedDecoder
     from .decoder import ReferenceDecoder
     register("native", "bit-exact scalar decoder (runtime reference)",
              lambda host=None: ReferenceDecoder(host))
+    register("emulator-strict",
+             "ADSP-2105 interpreter running original ROM firmware",
+             lambda host=None: EmulatedDecoder(host))
+    register("emulator-fast",
+             "ADSP-2105 interpreter with native transform speedup",
+             lambda host=None: EmulatedDecoder(host, enable_speedup=True))

@@ -14,7 +14,10 @@ output, except:
   ``--device cpu`` runs the kernels' plain PyTorch versions on the host;
 - the 1993 family and raw ``.dcs`` transcodes are encoded on the host, as
   in the JAX package;
-- inputs are WAV or raw ``.dcs``: FLAC, MP3 and Ogg are refused.
+- inputs are WAV, FLAC, MP3, Ogg Vorbis or raw ``.dcs``, as in the JAX
+  package: ``utils/audioio.read_audio`` reads the first four through the
+  port's native decoders, and their PCM goes, like a WAV's, through the
+  resampler and ``encode_files_device``.
 
 Usage:
   python -m dcsexplorer_tpu_torch.tools.encoder_cli input.wav -o out.dcs

@@ -9,8 +9,10 @@ reference decoder).  The same options and output, except:
 
 - ``--backend`` defaults to ``cuda``, the session pipeline's kernels
   (``decode94_bank``, then ``session_mix94`` + ``transform94_pcm``, or
-  ``decode93_pcm`` for a 1993 ROM); ``native`` is the one registered
-  decoder (the emulator backends are not carried);
+  ``decode93_pcm`` for a 1993 ROM); the registered decoders are, as in
+  the JAX package, ``native`` (the scalar decoder), ``emulator-strict``
+  and ``emulator-fast`` (the ROM's own firmware on the ADSP-2105
+  emulator, ``emu/``), each run on the host;
 - ``--platform default`` is the card: a command that decodes on the device
   exits 2 without one, and never falls back to the CPU; ``--platform cpu``
   runs the kernels' plain PyTorch versions on the host;
@@ -74,8 +76,9 @@ def build_parser():
     p.add_argument("--backend", default="cuda",
                    help="decode backend for extraction/autoplay: 'cuda' "
                         "(batched device pipeline) or any registered "
-                        "decoder by name/prefix — 'native' (scalar); '?' "
-                        "lists backends")
+                        "decoder by name/prefix — 'native' (scalar), "
+                        "'emulator-strict' (runs original ROM firmware on "
+                        "the ADSP-2105 interpreter); '?' lists backends")
     p.add_argument("--vol", type=int, default=0x67, help="master volume 0-255")
     p.add_argument("--platform", choices=("default", "cpu"), default="default",
                    help="device override (default = the CUDA card, cpu = "

@@ -4,10 +4,10 @@ WAV: minimal RIFF PCM (the 44-byte header form the reference's extractors
 emit, DCSExplorer.cpp:1670-1739).  Raw .dcs: the "DCSa" interchange container
 (format spec: reference DCSExplorer/README.md:274-297).
 
-The port's copy of the WAV and raw-stream half of
-``dcsexplorer_tpu/utils/audioio.py``, with its ``read_audio``.  The FLAC,
-MP3 and Ogg readers (with their native decoders) are not carried yet:
-``read_audio`` raises ValueError naming the format."""
+The port's copy of ``dcsexplorer_tpu/utils/audioio.py``: WAV, the raw
+stream container, and the FLAC, MP3 and Ogg Vorbis readers over the port's
+native decoders (native/src/flac.cpp, mp3.cpp, vorbis.cpp), which raise
+when the native runtime does not build."""
 
 import struct
 
@@ -122,26 +122,77 @@ def is_dcs_raw(path):
         return False
 
 
-def read_audio(path_or_bytes):
-    """Read an audio input by magic bytes; returns (float32 mono array in
-    [-1, 1), sample_rate).
+def _read_bytes(path_or_bytes):
+    if isinstance(path_or_bytes, (bytes, bytearray)):
+        return bytes(path_or_bytes)
+    with open(path_or_bytes, "rb") as f:
+        return f.read()
 
-    Supported: WAV (all common PCM layouts).  FLAC, MP3 and Ogg Vorbis
-    inputs, which the JAX package reads through its native decoders, raise
-    ValueError naming the format."""
+
+def read_flac(path_or_bytes):
+    """Read a FLAC file via the native decoder (native/src/flac.cpp);
+    returns (float32 mono array in [-1, 1), sample_rate).
+
+    Counterpart of the reference's libnyquist input path
+    (DCSEncoder/DCSEncodeFile.cpp:6-21)."""
+    from .. import native
+    samples, rate, bits = native.flac_decode(_read_bytes(path_or_bytes))
+    a = samples.astype(np.float32) / float(1 << (bits - 1))
+    if a.shape[1] > 1:
+        a = a.mean(axis=1)
+    return a.reshape(-1), rate
+
+
+def read_mp3(path_or_bytes):
+    """Read an MPEG-1 Layer III file via the from-scratch native decoder
+    (native/src/mp3.cpp); returns (float32 mono array in [-1, 1),
+    sample_rate).
+
+    Counterpart of the reference's libnyquist/minimp3 input path
+    (DCSEncoder/DCSEncodeFile.cpp:55-59)."""
+    from .. import native
+    samples, rate = native.mp3_decode(_read_bytes(path_or_bytes))
+    a = samples.astype(np.float32) / 32768.0
+    if a.shape[1] > 1:
+        a = a.mean(axis=1)
+    return a.reshape(-1), rate
+
+
+def read_ogg(path_or_bytes):
+    """Read an Ogg Vorbis file via the from-scratch native decoder
+    (native/src/vorbis.cpp); returns (float32 mono array in [-1, 1),
+    sample_rate).
+
+    Counterpart of the reference's libnyquist/libvorbis input path
+    (DCSEncoder/DCSEncodeFile.cpp:55-59)."""
+    from .. import native
+    samples, rate = native.vorbis_decode(_read_bytes(path_or_bytes))
+    a = samples.astype(np.float32)
+    if a.shape[1] > 1:
+        a = a.mean(axis=1)
+    return a.reshape(-1), rate
+
+
+def read_audio(path_or_bytes):
+    """Read any supported audio input by magic bytes; returns
+    (float32 mono array in [-1, 1), sample_rate).
+
+    Supported: WAV (all common PCM layouts), FLAC, MP3 (MPEG-1
+    Layer III, native/src/mp3.cpp), and Ogg Vorbis
+    (native/src/vorbis.cpp) — the reference's libnyquist input set."""
     if isinstance(path_or_bytes, (bytes, bytearray)):
         head = bytes(path_or_bytes[:4])
     else:
         with open(path_or_bytes, "rb") as f:
             head = f.read(4)
+    if head[:4] == b"fLaC":
+        return read_flac(path_or_bytes)
     if head[:4] == b"RIFF":
         return read_wav(path_or_bytes)
-    for name, magic in (("FLAC", head[:4] == b"fLaC"),
-                        ("MP3", head[:3] == b"ID3" or head[:2] in (
-                            b"\xff\xfb", b"\xff\xfa", b"\xff\xf3",
-                            b"\xff\xf2")),
-                        ("Ogg", head[:4] == b"OggS")):
-        if magic:
-            raise ValueError(f"{name} input is not supported by the port "
-                             "yet (supported: WAV)")
-    raise ValueError("unrecognized audio format (supported: WAV)")
+    if head[:3] == b"ID3" or head[:2] in (b"\xff\xfb", b"\xff\xfa",
+                                          b"\xff\xf3", b"\xff\xf2"):
+        return read_mp3(path_or_bytes)
+    if head[:4] == b"OggS":
+        return read_ogg(path_or_bytes)
+    raise ValueError(
+        "unrecognized audio format (supported: WAV, FLAC, MP3, Ogg)")

@@ -421,9 +421,17 @@ def test_read_audio_matches_jax(script_dir):
     assert got[1] == want[1] == 44100 and np.array_equal(got[0], want[0])
     data = path.read_bytes()
     assert np.array_equal(taudio.read_audio(data)[0], want[0])
+    # FLAC, MP3 and Ogg heads go to the native readers, as in the JAX
+    # package: the same ValueError, or the same (here empty) decode
     for magic, name in ((b"fLaC", "FLAC"), (b"ID3\x03", "MP3"),
-                        (b"\xff\xfb\x90\x00", "MP3"), (b"OggS", "Ogg")):
-        with pytest.raises(ValueError, match=name):
+                        (b"OggS", "Ogg")):
+        with pytest.raises(ValueError, match=name) as err:
             taudio.read_audio(magic + bytes(60))
+        with pytest.raises(ValueError, match=name) as jerr:
+            jaudio.read_audio(magic + bytes(60))
+        assert str(err.value) == str(jerr.value)
+    got = taudio.read_audio(b"\xff\xfb\x90\x00" + bytes(60))
+    want = jaudio.read_audio(b"\xff\xfb\x90\x00" + bytes(60))
+    assert got[1] == want[1] and np.array_equal(got[0], want[0])
     with pytest.raises(ValueError, match="unrecognized"):
         taudio.read_audio(b"DCSa" + bytes(60))

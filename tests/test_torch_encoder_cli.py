@@ -4,7 +4,7 @@ versions): the output files of every ``--format-version``, a 44,100 Hz
 WAV among several inputs of one call, a raw .dcs94 transcoded to 93b,
 ``--check``, ``--script`` and ``--script --patch`` (the patched set's
 untouched tracks still play the prototype's streams); and the CLI's
-refusals (no card, FLAC input)."""
+refusals (no card, a malformed FLAC input)."""
 
 import os
 import zipfile
@@ -174,6 +174,7 @@ def test_cli_without_a_card_exits_2(inputs, tmp_path, capsys):
 
 
 def test_cli_refuses_flac(tmp_path, capsys):
+    # FLAC is read now; a malformed one is refused with the reader's error
     src = tmp_path / "in.flac"
     src.write_bytes(b"fLaC" + bytes(64))
     assert tcli.main([str(src), "-o", str(tmp_path / "o.dcs"),

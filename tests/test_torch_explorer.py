@@ -11,7 +11,8 @@ versions), in process through each CLI's main(argv):
   session93a.zip (OS93a, where the JAX autoplay is known wrong for Type-1
   band widths 7..9) the decodes against the port's scalar decoder;
 - --validate, its diagnostics (test_cli.py's, with the device side labelled
-  "cuda  "), exit codes, backend selection, and the card requirement.
+  "cuda  "), exit codes, backend selection (the emulator backends'
+  extraction: tests/test_torch_emu.py), and the card requirement.
 
 ROMs: the synthetic RomBuilder(_make_spec()) zip of test_cli.py, and the
 committed data/session6.zip and data/session93a.zip."""
@@ -323,16 +324,25 @@ def test_validate_diagnostics_on_port_mismatch(roms, tmp_path, monkeypatch):
 
 
 def test_backend_list_and_prefix(roms, tmp_path, capsys):
-    for name in ("?", "emulator-strict", "emu", "tpu"):
+    # '?', an ambiguous prefix ("emu") and an unknown name ("tpu") list the
+    # card's pipeline and the three registered decoders, as the JAX CLI
+    # lists its own
+    for name in ("?", "emu", "tpu"):
         rc, out, _ = _main(tx, [roms["synth"], "--backend", name], capsys)
         assert rc == 0
         assert out.splitlines() == [
             "Available decoders:",
             f"    {'cuda':<16} batched CUDA device pipeline (default)",
+            f"    {'emulator-fast':<16} ADSP-2105 interpreter with native "
+            "transform speedup",
+            f"    {'emulator-strict':<16} ADSP-2105 interpreter running "
+            "original ROM firmware",
             f"    {'native':<16} bit-exact scalar decoder (runtime "
             "reference)"]
-    assert [r.name for r in treg.registrations()] == ["native"]
+    assert [r.name for r in treg.registrations()] == [
+        "emulator-fast", "emulator-strict", "native"]
     assert treg.resolve("NAT").name == "native"
+    assert treg.resolve("emulator-s").name == "emulator-strict"
     assert isinstance(treg.create("n"), trd.ReferenceDecoder)
     files = {}
     for name in ("nat", "native", "scalar"):
