@@ -4,8 +4,9 @@
 paths of the 1994+ and the 1993 families, the on-device 1994+ encoder,
 the explorer CLI's decode commands, the sharded paths over a mesh of
 one card's streams, the host-decode hybrid, the ROM compiler and encoder
-CLI with FLAC, MP3 and Ogg inputs, and the ADSP-2105 emulator held against
-the card's sessions (dcsexplorer_tpu_torch) end to end,
+CLI with FLAC, MP3 and Ogg inputs, the ADSP-2105 emulator held against
+the card's sessions, the bench-asset generator, the corpus validator and
+decoder checkpoints (dcsexplorer_tpu_torch) end to end,
 through their hand-written kernels, with torch.profiler traces of three of
 those paths.
 
@@ -231,10 +232,30 @@ non-zero):
      --max-track-frames 60 as a subprocess, its 240 WAVs byte-identical
      with --backend cuda's in process.  Each number beside the card's name
      and power limit
+ 22. the last tools: tools/make_bench_assets.py in process (--out a
+     directory holding the committed manifest) with the counters at 0:
+     one launch of each encoder kernel for the two 1994+ music streams;
+     every stream byte-identical with the port's host encode_pcm of the
+     same PCM, dense_t1(b).dcs93a1 with the committed files, the manifest
+     the committed one but for the written sizes (the committed music
+     predates later encoder changes: its sizes are printed beside); its
+     wall time and, from a second run under torch.profiler in a fresh
+     interpreter (after an untraced warm-up there), the card's busy time:
+     the trace must hold the encoder's kernels, none more than 1 ms before
+     its launch (the same run traced in this process is printed beside).  tools/test_all.py in process over session6.zip,
+     session93a.zip and phase 20's set at --max-track-frames 30: every ROM
+     .success, the counters of decode94_bank, session_mix94,
+     transform94_pcm_carry and decode93_pcm_carry must move; then python
+     -m dcsexplorer_tpu_torch.tools.test_all DIR --versions as a
+     subprocess, rc 0.  Checkpoints (utils/state.py) on phase 20's set:
+     ReferenceDecoder and emulator-strict (the native core) driven 20
+     frames + 77 samples (two tracks, a volume command), snapshot,
+     pickled, loaded into fresh decoders: the next 200 frames equal the
+     uninterrupted run and the card's play_session of the same events
 Then the script's wall time, one JSON line of per-kernel results
-(launches: over all twelve paths, each path's own printed in phases 4, 7,
-10, 11, 13, 14, 15, 17, 18, 19, 20 and 21), and last the {"ok": true, ...}
-line.
+(launches: over all thirteen paths, each path's own printed in phases 4,
+7, 10, 11, 13, 14, 15, 17, 18, 19, 20, 21 and 22), and last the
+{"ok": true, ...} line.
 There is no CPU path: without a CUDA device the script exits 1.
 """
 
@@ -251,6 +272,28 @@ import time
 import zipfile
 
 HERE = os.path.dirname(os.path.abspath(__file__))
+
+# phase 22's traced make_bench_assets run, in a fresh interpreter: argv is
+# the warm-up's output directory, the traced run's and the trace directory;
+# prints the run's code, its launches and the trace's path as JSON
+TRACED_ASSETS = r"""
+import contextlib, io, json, sys
+import torch
+from dcsexplorer_tpu_torch.ops import kernels
+from dcsexplorer_tpu_torch.tools import make_bench_assets
+from dcsexplorer_tpu_torch.utils import profiling
+warm, out, log_dir = sys.argv[1:4]
+with contextlib.redirect_stdout(io.StringIO()):
+    assert make_bench_assets.main(["--out", warm]) == 0
+for k in kernels.LAUNCHES:
+    kernels.LAUNCHES[k] = 0
+with profiling.device_trace(log_dir) as prof:
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = make_bench_assets.main(["--out", out])
+    torch.cuda.synchronize()
+print(json.dumps({"rc": rc, "launches": kernels.LAUNCHES,
+                  "trace": prof.trace_file}))
+"""
 STREAMS = os.path.join(HERE, "assets", "streams")
 COPIES = 144                   # x (music_a, music_b): bench.py's flat94_music
 SESSION6_ZIP = os.path.join(HERE, "dcsexplorer_tpu_torch", "data",
@@ -264,6 +307,8 @@ REF_FRAMES = 250               # frames held against the scalar decoder
 ENC_FILES = 64                 # bench.py's enc94_dev: 64 files of 2.0 s
 ROM_FILES = 240                # phase 20's WAVs of 2.0 s (see the docstring)
 ROM_SESSIONS, ROM_FRAMES = 64, 500
+VALIDATE_FRAMES = 30           # phase 22's test_all --max-track-frames
+CKPT_FRAME, CKPT_FRAMES = 20, 200   # phase 22's checkpoint and its frames
 LEGACY = ("sine_mix_1s", "noise_sweep", "tone_low", "chirpy")
 FLAT94_COPIES = 288            # x LEGACY: bench.py's flat94
 E2E_COPIES, E2E_CHUNKS = 24, 4  # bench.py's flat94_e2e and catalog_e2e
@@ -1846,7 +1891,9 @@ def main():
               + "; longest idle gaps: " + ", ".join(
                   f"{ms:.3f} ms in {span}" for ms, span in s["gaps"])
               + "; host spans (ms): " + ", ".join(
-                  f"{k} {v:.3f}" for k, v in s["spans"].items()))
+                  f"{k} {v:.3f}" for k, v in s["spans"].items())
+              + f"; kernels at most {s['lead_ms']:.3f} ms before their "
+              f"launches")
 
     summarize("a cold flat94_e2e call", lambda: cold.cold_flat94(
         e2e, E2E_COPIES, E2E_CHUNKS, cdev))
@@ -2738,8 +2785,251 @@ def main():
     for k, r in results.items():
         r["launches"] += (c21[k] + sc21[k] + x21c[k]
                           + sum(e[k] for e in emu21.values()))
-    shutil.rmtree(work, ignore_errors=True)
     shutil.rmtree(work21, ignore_errors=True)
+
+    # 22. the last tools on the card: the bench assets, corpus validation
+    # and checkpoints of a resumed scalar decoder and emulator
+    t22 = time.perf_counter()
+    import pickle
+    from dcsexplorer_tpu_torch.tools import make_bench_assets, test_all
+    from dcsexplorer_tpu_torch.utils import state as dstate
+    work22 = os.path.join(HERE, "build", "chip_smoke_tools")
+    shutil.rmtree(work22, ignore_errors=True)
+    os.makedirs(work22)
+    # (a) make_bench_assets into a directory that holds the committed
+    # manifest (its merge runs as in place): one encode_files_device call
+    # for the two 1994+ music streams; then, for the card's time, a second
+    # run under a trace, which must hold the encoder's kernels, each after
+    # its launch.  The traced run goes to a fresh interpreter, which warms
+    # up untraced first: after phases 1-21 the profiler of this process
+    # can map the card's timestamps onto the host's clock wrongly (kernels
+    # placed before their launches with their durations shrunk, or dropped
+    # as outside the window: PERF.md section 7).  The same run traced here
+    # is printed beside it, for comparison only
+    music = ("music_a.dcs94", "music_b.dcs94", "music_a.dcs93b",
+             "music_b.dcs93a")
+    written = music + ("dense_t1.dcs93a1", "dense_t1b.dcs93a1")
+    out22 = [os.path.join(work22, d) for d in ("assets", "traced")]
+    for d in out22:
+        os.makedirs(d)
+        shutil.copyfile(os.path.join(STREAMS, "manifest.json"),
+                        os.path.join(d, "manifest.json"))
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        rc = make_bench_assets.main(["--out", out22[0]])
+    assets_s = time.perf_counter() - t0
+    a22 = dict(kernels.LAUNCHES)
+    if rc != 0 or any(a22[k] != 1 for k in on_enc_path):
+        raise AssertionError(f"make_bench_assets exited {rc}, launches "
+                             f"{dict((k, a22[k]) for k in on_enc_path)}: "
+                             f"expected one of each encoder kernel")
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-c", TRACED_ASSETS, os.path.join(work22, "warm"),
+         out22[1], os.path.join(HERE, "build", "torch_trace")],
+        cwd=HERE, capture_output=True, text=True, timeout=300)
+    traced_s = time.perf_counter() - t0
+    if r.returncode != 0:
+        raise AssertionError(f"the traced make_bench_assets process exited "
+                             f"{r.returncode}\n{r.stdout}\n{r.stderr}")
+    child = json.loads(r.stdout.strip().splitlines()[-1])
+    at22 = child["launches"]
+    got22 = [{n: _read(os.path.join(d, n)) for n in written + (
+        "manifest.json",)} for d in out22]
+    if child["rc"] != 0 or got22[1] != got22[0] or any(
+            at22[k] != 1 for k in on_enc_path):
+        raise AssertionError(f"the traced make_bench_assets run exited "
+                             f"{child['rc']}, launches {at22}, or wrote "
+                             f"other bytes")
+    s22 = profiling.trace_summary(child["trace"])
+    if s22["lead_ms"] > 1.0:
+        raise AssertionError(f"{child['trace']}: a kernel starts "
+                             f"{s22['lead_ms']:.3f} ms before its launch: "
+                             f"the trace's device clock is off")
+    with profiling.device_trace() as prof22:
+        with contextlib.redirect_stdout(io.StringIO()):
+            make_bench_assets.main(["--out", os.path.join(work22, "here")])
+        torch.cuda.synchronize()
+    try:
+        h = profiling.trace_summary(prof22.trace_file)
+        here22 = (f"card busy {h['busy_ms']:.3f} ms, kernels at most "
+                  f"{h['lead_ms']:.3f} ms before their launches, "
+                  f"{sum(c for _, c, _ in h['kernels'])} kernel events")
+    except ValueError as e:
+        here22 = str(e)
+    got22 = got22[0]
+    if sorted(os.listdir(out22[0])) != sorted(written + ("manifest.json",)):
+        raise AssertionError(f"make_bench_assets wrote "
+                             f"{sorted(os.listdir(out22[0]))}")
+    # every stream against the port's host encode of the same PCM; the
+    # Type-1 streams and the manifest's other entries are the committed
+    synth = {"music_a": make_bench_assets.synth_music(8.0, seed=11,
+                                                      root=220.0),
+             "music_b": make_bench_assets.synth_music(8.0, seed=23,
+                                                      root=174.6)}
+    t0 = time.perf_counter()
+    for name in music:
+        stem, ext = name.split(".")
+        os_v = {"dcs94": None, "dcs93b": rd.OS93B, "dcs93a": rd.OS93A}[ext]
+        want = enc.encode_pcm(synth[stem], None, os_version=os_v)[0]
+        if got22[name] != want:
+            raise AssertionError(f"make_bench_assets {name} != the host "
+                                 f"encode_pcm of the same PCM")
+    host22_s = time.perf_counter() - t0
+    for name in written[4:]:
+        if got22[name] != _read(os.path.join(STREAMS, name)):
+            raise AssertionError(f"make_bench_assets {name} != the "
+                                 f"committed file")
+    committed = json.loads(_read(os.path.join(STREAMS, "manifest.json")))
+    manifest = json.loads(got22["manifest.json"])
+    for name in written:
+        committed[name]["bytes"] = len(got22[name])
+    if manifest != committed:
+        raise AssertionError("make_bench_assets' manifest != the committed "
+                             "one with the written sizes")
+    print(f"phase 22 make_bench_assets --out ({smi.splitlines()[0]}): wall "
+          f"{assets_s:.3f} s (synthesis, one encode_files_device call of "
+          f"the two 1994+ streams, the two 1993 encodes on the host, the "
+          f"writes), encoder launches "
+          f"{dict((k, a22[k]) for k in on_enc_path)}; the traced run (a "
+          f"fresh process, {traced_s:.3f} s with its start and warm-up): "
+          f"card busy {s22['busy_ms']:.3f} ms of a {s22['window_ms']:.3f} "
+          f"ms window (idle share {s22['idle_share']:.4f}, kernels at most "
+          f"{s22['lead_ms']:.3f} ms before their launches), kernels "
+          + "; ".join(f"{n[:40]} x{c} {ms:.4f} ms"
+                      for n, c, ms in s22["kernels"])
+          + f"; the same run traced in this process: {here22}"
+          + f"; every stream the host encode_pcm's ({host22_s:.3f} s), "
+          f"dense_t1*.dcs93a1 the committed files, the manifest the "
+          f"committed one but for the written sizes; the music against the "
+          f"committed files (bytes): "
+          + ", ".join(f"{n} {len(got22[n])} vs "
+                      f"{len(_read(os.path.join(STREAMS, n)))}"
+                      for n in music))
+    # (b) test_all over session6.zip, session93a.zip and phase 20's set
+    roms22 = os.path.join(work22, "roms")
+    os.makedirs(roms22)
+    for src in (SESSION6_ZIP, SESSION93A_ZIP):
+        shutil.copyfile(src, os.path.join(roms22, os.path.basename(src)))
+    shutil.copyfile(out_zip, os.path.join(roms22, "rom_compile.zip"))
+    res22 = os.path.join(work22, "results")
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()) as log22:
+        rc = test_all.main([roms22, res22, "--max-track-frames",
+                            str(VALIDATE_FRAMES)])
+    validate_s = time.perf_counter() - t0
+    v22 = dict(kernels.LAUNCHES)
+    names22 = ("rom_compile", "session6", "session93a")
+    markers = sorted(n for n in os.listdir(res22)
+                     if not n.endswith(".log"))
+    if rc != 0 or markers != [f"{n}.success" for n in names22]:
+        raise AssertionError(f"test_all exited {rc}, markers {markers}:\n"
+                             f"{log22.getvalue()}")
+    on_val = ("decode94_bank", "session_mix94", "transform94_pcm_carry",
+              "decode93_pcm_carry")
+    if not all(v22[k] > 0 for k in on_val):
+        raise AssertionError(f"a kernel of the validation did not launch: "
+                             f"{v22}")
+    compared = [ln for n in names22 for ln in _read(os.path.join(
+        res22, f"{n}.log")).decode().splitlines()
+        if ln.startswith("Samples compared")]
+    t0 = time.perf_counter()
+    r = subprocess.run(
+        [sys.executable, "-m", "dcsexplorer_tpu_torch.tools.test_all",
+         roms22, res22, "--versions"],
+        cwd=HERE, capture_output=True, text=True, timeout=300)
+    versions_s = time.perf_counter() - t0
+    if r.returncode != 0 or len(r.stdout.splitlines()) != 3 or \
+            "ERROR" in r.stdout or "POST code" in r.stdout:
+        raise AssertionError(f"test_all --versions: rc {r.returncode}\n"
+                             f"{r.stdout}\n{r.stderr}")
+    print(f"phase 22 test_all over {', '.join(names22)} at "
+          f"--max-track-frames {VALIDATE_FRAMES} on the card "
+          f"({smi.splitlines()[0]}): {validate_s:.3f} s wall, every ROM "
+          f".success ({'; '.join(compared)}), launches "
+          f"{dict((k, v) for k, v in v22.items() if v)}; python -m "
+          f"dcsexplorer_tpu_torch.tools.test_all --versions: rc 0 in "
+          f"{versions_s:.3f} s: {' | '.join(r.stdout.splitlines())}")
+    # (c) checkpoints on phase 20's set: the scalar decoder and the
+    # emulator (native core, strict) snapshot mid-frame, save, load into
+    # fresh decoders; the next CKPT_FRAMES frames against the uninterrupted
+    # run and the card's play_session
+    t_a, t_b = 1 + (ROM_FILES - 1) // 3, 2 + 2 * (ROM_FILES - 1) // 3
+    ev22 = {0: [t_a >> 8, t_a & 0xFF], 6: [t_b >> 8, t_b & 0xFF],
+            13: [0x55, 0xAA, 0x58, 0x58 ^ 0xFF]}
+    at = CKPT_FRAME * 240 + 77          # mid-frame, after every event
+    span = slice(at, at + CKPT_FRAMES * 240)
+    for k in kernels.LAUNCHES:
+        kernels.LAUNCHES[k] = 0
+    card22, _ = romplay.play_session(
+        rs20, {f: (lambda dec, bs=bs: [dec.write_data_port(b) for b in bs])
+               for f, bs in ev22.items()}, CKPT_FRAME + CKPT_FRAMES + 1,
+        device=dev)
+    torch.cuda.synchronize()
+    c22 = dict(kernels.LAUNCHES)
+    if not all(c22[k] > 0 for k in on_val[:3]):
+        raise AssertionError(f"a kernel of play_session did not launch: "
+                             f"{c22}")
+    card22 = card22[span]
+
+    def drive(dec):
+        dec.default_volume = 0x67
+        dec.load_rom_set(rs20)
+        dec.soft_boot()
+        for f in range(CKPT_FRAME):
+            for b in ev22.get(f, ()):
+                dec.write_data_port(b)
+            dec.next_samples(240)
+        dec.next_samples(77)
+        return dec
+
+    ckpt22 = {}
+    for label, make, snap, restore in (
+            ("ReferenceDecoder", rd.ReferenceDecoder, dstate.snapshot,
+             dstate.restore),
+            ("emulator-strict", EmulatedDecoder, dstate.snapshot_emulated,
+             dstate.restore_emulated)):
+        t0 = time.perf_counter()
+        dec = drive(make())
+        path = os.path.join(work22, f"{label}.pkl")
+        with open(path, "wb") as f:
+            pickle.dump(snap(dec), f)
+        want = np.array(dec.next_samples(CKPT_FRAMES * 240), dtype=np.int16)
+        fresh = make()
+        fresh.default_volume = 0x67
+        fresh.load_rom_set(rs20)
+        with open(path, "rb") as f:
+            restore(fresh, pickle.load(f))
+        got = np.array(fresh.next_samples(CKPT_FRAMES * 240),
+                       dtype=np.int16)
+        for other, ref in (("the uninterrupted run", want),
+                           ("the card's play_session", card22)):
+            if not np.array_equal(got, ref):
+                bad = np.nonzero(got != ref)[0]
+                raise AssertionError(f"{label} resumed from its checkpoint "
+                                     f"!= {other}: {bad.size} samples "
+                                     f"differ, first {bad[0]}")
+        if not np.abs(got.astype(np.int32)).max() > 0:
+            raise AssertionError(f"{label}: the resumed frames are silent")
+        ckpt22[label] = (os.path.getsize(path), time.perf_counter() - t0)
+    print(f"phase 22 checkpoints on phase 20's set, tracks {t_a} and {t_b} "
+          f"and a volume command, saved {CKPT_FRAME} frames + 77 samples "
+          f"in: "
+          + "; ".join(f"{label} ({size} bytes pickled, {s:.3f} s)"
+                      for label, (size, s) in ckpt22.items())
+          + f": each loaded into a fresh decoder plays the next "
+          f"{CKPT_FRAMES} frames bit-exact with the uninterrupted run and "
+          f"the card's play_session (launches "
+          f"{dict((k, v) for k, v in c22.items() if v)}); phase wall "
+          f"{time.perf_counter() - t22:.1f} s")
+    for k, r in results.items():
+        r["launches"] += a22[k] + at22[k] + v22[k] + c22[k]
+    shutil.rmtree(work22, ignore_errors=True)
+    shutil.rmtree(work, ignore_errors=True)
 
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))

@@ -25,9 +25,13 @@ code it needs is its own copy, in the reference's layout.
                 (``script.compile_script_file``), the 1994+ streams encoded
                 in batches on the device.
 - ``tools``   — the explorer CLI (``python -m
-                dcsexplorer_tpu_torch.tools.explorer ROM.zip``) and the
+                dcsexplorer_tpu_torch.tools.explorer ROM.zip``), the
                 encoder CLI (``python -m
-                dcsexplorer_tpu_torch.tools.encoder_cli``).
+                dcsexplorer_tpu_torch.tools.encoder_cli``), the corpus
+                validator (``test_all``) and the bench-asset generator
+                (``make_bench_assets``).
+- ``utils``   — audio I/O, the player, profiling, and decoder checkpoints
+                (``state``).
 
 Values follow the reference's u16-in-int32 storage convention throughout.
 """

@@ -62,6 +62,9 @@ _SIGNATURES = {
     "dcstr_load_stream": (None, [_P, _I, C.c_uint, _I, _I]),
     "dcstr_write_port": (None, [_P, _I]),
     "dcstr_trace": (C.c_int, [_P, _I, _P, _P, _I] + [_P] * 4),
+    "dcstr_trace_rows": (C.c_int, [_P, _I, _P, _P, _I, _P, _P, _I]
+                         + [_P] * 3),
+    "dcstr_read_host": (C.c_int, [_P, _P, _I]),
     "dcstr_trace_segs": (C.c_int, [_P, _I, _P, _P, _I, _P, _P, _I, _I, _I]
                          + [_P] * 5),
     "dcstr_trace_segs_batch": (C.c_int, [_P, _I, _I, _P, _P, _P, _P, _P, _I,

@@ -174,15 +174,31 @@ def prescan94_python(mem, pos=0):
                        n_symbols=n_symbols, error_frame=error_frame)
 
 
-def scan_totals(idx: StreamIndex):
-    """Per-frame POSITION counts (frame-buffer span of all active bands).
-    The device decode's step count must cover max(scan_totals)."""
+def _band_geometry(idx: StreamIndex):
+    """(active [16] bool: the bands before the first $7F header byte,
+    output counts [16], output increments [16]: 2 for a halved band)."""
     header = np.asarray(idx.header, dtype=np.int64)
     active = np.cumprod((header & 0x7F) != 0x7F).astype(bool)
     counts = np.asarray(T.BAND_OUTPUT_COUNT).copy()
     halved = (header & 0x40) != 0
     out_inc = np.where(halved, 2, 1)
     counts = np.where(halved, counts // 2, counts)
+    return active, counts, out_inc
+
+
+def dense_totals(idx: StreamIndex):
+    """Per-frame dense output slot counts (data-independent, from band
+    types): the values the hybrid path's native stage emits a frame."""
+    active, counts, _ = _band_geometry(idx)
+    per_band = np.where(active[None, :] & (idx.band_type != 0),
+                        counts[None, :], 0)
+    return per_band.sum(axis=1).astype(np.int32)
+
+
+def scan_totals(idx: StreamIndex):
+    """Per-frame POSITION counts (frame-buffer span of all active bands).
+    The device decode's step count must cover max(scan_totals)."""
+    active, counts, out_inc = _band_geometry(idx)
     adv = np.where(active[None, :] & (idx.band_type != 0),
                    (counts * out_inc)[None, :],
                    np.where(active[None, :], counts[None, :], 0))

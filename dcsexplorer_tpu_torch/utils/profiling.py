@@ -117,7 +117,13 @@ def trace_summary(trace_file, top=5, n_gaps=3):
       ``idle_share``: 1 - busy / window;
     - ``gaps``: the ``n_gaps`` longest idle stretches of the window, as
       (ms, the host span that overlaps it most or None);
-    - ``spans``: the host spans' total ms by name.
+    - ``spans``: the host spans' total ms by name;
+    - ``lead_ms``: the most that a kernel starts before the host call that
+      launched it (matched by ``args.correlation``), else 0.  A kernel
+      cannot run before its launch: a lead beyond the clocks' jitter (tens
+      of microseconds) means the profiler mapped the device's timestamps
+      onto the host's clock wrongly, and the device times are not to be
+      read.
 
     Raises ValueError if the trace holds no kernel event: it is then no
     trace of the device."""
@@ -125,8 +131,17 @@ def trace_summary(trace_file, top=5, n_gaps=3):
         events = [e for e in json.load(f)["traceEvents"]
                   if e.get("ph") == "X" and "dur" in e]
     kern = [e for e in events if e.get("cat") == "kernel"]
+    calls = {e["args"]["correlation"]: e["ts"] for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})}
     if not kern:
-        raise ValueError(f"{trace_file}: no CUDA kernel event")
+        n = sum("Launch" in e["name"] for e in events
+                if e.get("cat") in ("cuda_runtime", "cuda_driver"))
+        raise ValueError(f"{trace_file}: no CUDA kernel event ({n} launch "
+                         f"calls on the host)")
+    lead = max((calls[c] - e["ts"] for e in kern
+                if (c := e.get("args", {}).get("correlation")) in calls),
+               default=0.0)
     per = defaultdict(lambda: [0, 0.0])
     for e in kern:
         per[e["name"]][0] += 1
@@ -158,4 +173,4 @@ def trace_summary(trace_file, top=5, n_gaps=3):
     window = (hi - lo) / 1e3
     return dict(kernels=kernels, window_ms=window, busy_ms=busy_us / 1e3,
                 idle_share=1 - busy_us / 1e3 / window, gaps=gaps,
-                spans=dict(totals))
+                spans=dict(totals), lead_ms=max(lead, 0.0) / 1e3)

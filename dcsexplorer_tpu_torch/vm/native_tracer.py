@@ -3,10 +3,13 @@
 The port's copy of ``dcsexplorer_tpu/vm/native_tracer.py``.  One C call
 traces N frames of the track VM, command queue, data-port protocol, fades
 and volume, and returns the per-frame control vectors the device decode
-consumes: either dense per-frame arrays (``trace_frames``) or, for serving,
-each channel lane's linear segments (``trace_segs``, and
-``trace_segs_batch`` for a whole batch of independent sessions).  The C
-calls release the GIL (ctypes), so a trace overlaps other Python threads.
+consumes: either dense per-frame arrays (``trace_frames``, mapped onto a
+bank's rows by ``assemble_controls_native``), rows already narrowed for
+the device (``trace_rows``) or, for serving, each channel lane's linear
+segments (``trace_segs``, and ``trace_segs_batch`` for a whole batch of
+independent sessions); ``read_host_bytes`` returns the data-port bytes
+sent to the host.  The C calls release the GIL (ctypes), so a trace
+overlaps other Python threads.
 """
 
 import ctypes as C
@@ -129,6 +132,25 @@ class NativeControlTracer:
             raise rd.ResetError(f"native trace fault ({rc})")
         return out_s, out_f, out_m, out_v
 
+    def trace_rows(self, n, addr_tab, off_tab, out_rows, out_mix, out_vol,
+                   events=None):
+        """Trace n frames and write device-ready controls in place: trace,
+        row assembly and u16/u8 narrowing in one C pass
+        (dcstr_trace_rows in native/src/tracer.cpp).
+
+        addr_tab/off_tab: the sorted stream table from stream_row_table.
+        out_rows/out_mix: C-contiguous uint16 [n, 8]; out_vol: uint8 [n].
+        """
+        evf, evb, _ = _event_arrays([events])
+        rc = self._lib.dcstr_trace_rows(
+            self._h, n, _p(evf), _p(evb), evf.size, _p(addr_tab),
+            _p(off_tab), len(addr_tab), _p(out_rows), _p(out_mix),
+            _p(out_vol))
+        if rc == -3:
+            raise KeyError("traced stream address missing from the bank")
+        if rc != 0:
+            raise rd.ResetError(f"native trace fault ({rc})")
+
     def trace_segs(self, n, addr_tab, off_tab, out_f0, out_base,
                    out_slope, out_mixv, out_vol, events=None):
         """Trace n frames and write each channel lane's linear segments
@@ -177,6 +199,13 @@ class NativeControlTracer:
             _p(off_tab), len(addr_tab), n_ch, E, _p(out_f0), _p(out_base),
             _p(out_slope), _p(out_mixv), _p(out_vol)))
 
+    def read_host_bytes(self, cap=1 << 16):
+        """The data-port bytes the runtime sent to the host so far (at most
+        cap): the native counterpart of a Python tracer's ``host.rx``."""
+        out = np.zeros(cap, dtype=np.uint8)
+        n = self._lib.dcstr_read_host(self._h, _p(out), cap)
+        return bytes(out[:n].tobytes())
+
 
 def stream_row_table(rom_set, bank):
     """Sorted (addr [n] int64, row offset [n] int32) table mapping every
@@ -190,3 +219,29 @@ def stream_row_table(rom_set, bank):
     addrs = np.asarray(sorted(pairs), dtype=np.int64)
     offs = np.asarray([pairs[a] for a in addrs.tolist()], dtype=np.int32)
     return addrs, offs
+
+
+def assemble_controls_native(rom_set, bank, out_s, out_f, out_m):
+    """Map a native trace (``trace_frames``) onto a StreamBank's rows.
+
+    Returns (rows [T, 8] int32, mix [T, 8] int32): the arrays
+    models/pipeline.assemble_controls derives from the Python tracer."""
+    T_ = out_s.shape[0]
+    uniq = [int(a) for a in np.unique(out_s) if a >= 0]
+    if not uniq:
+        return (np.zeros((T_, 8), dtype=np.int32),
+                np.where(out_s >= 0, out_m, 0).astype(np.int32))
+    offs = []
+    for addr in uniq:
+        ptr = rom_set.make_pointer(addr)
+        mem = ptr.mem.mem if isinstance(ptr.mem, rd.PaddedView) else ptr.mem
+        offs.append(bank.offsets[(id(mem), ptr.pos)])
+    addrs = np.asarray(uniq, dtype=np.int64)
+    offs = np.asarray(offs, dtype=np.int64)
+    flat = out_s.reshape(-1).astype(np.int64)
+    active = flat >= 0
+    idx = np.searchsorted(addrs, np.where(active, flat, addrs[0]))
+    rows = (offs[idx] + out_f.reshape(-1)) * active
+    rows = rows.reshape(T_, 8).astype(np.int32)
+    mix = np.where(out_s >= 0, out_m, 0).astype(np.int32)
+    return rows, mix

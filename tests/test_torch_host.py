@@ -1,6 +1,7 @@
 """The port's own host runtime against the JAX package's, on each of the six
 .dcs94 assets: the native prescan (and the Python walker, called by name),
-the native VM trace, the scan totals and the scalar ReferenceDecoder give
+the native VM trace, the scan and dense totals and the scalar
+ReferenceDecoder give
 the same results.  Also: a failed build of the native runtime raises."""
 
 import glob
@@ -64,6 +65,15 @@ def test_scan_totals_match_jax(name):
     got = tpre.scan_totals(tpre.prescan94(s, 0))
     assert got.dtype == want.dtype and np.array_equal(want, got)
     assert 0 < got.max() <= 255
+
+
+@pytest.mark.parametrize("name", NAMES)
+def test_dense_totals_match_jax(name):
+    idx = tpre.prescan94(_stream(name), 0)
+    want = jpre.dense_totals(jpre.prescan94(_stream(name), 0))
+    got = tpre.dense_totals(idx)
+    assert got.dtype == want.dtype and np.array_equal(want, got)
+    assert 0 < got.max() <= 256 and (got <= tpre.scan_totals(idx)).all()
 
 
 @pytest.mark.parametrize("name", NAMES)

@@ -105,6 +105,34 @@ def test_trace_summary_on_a_synthetic_trace(tmp_path):
     # idle: 0..10 (pack), 30..40 (upload), 45..70 and 80..100 (fetch)
     assert s["gaps"] == [(0.025, "fetch"), (0.02, "fetch"), (0.01, "pack")]
     assert s["spans"] == {"pack": 0.012, "upload": 0.012, "fetch": 0.056}
+    assert s["lead_ms"] == 0.0          # no kernel names its launch
+
+
+def test_trace_summary_reads_the_device_clock_lead(tmp_path):
+    # a kernel is matched to its launch by args.correlation: the first runs
+    # 4 us after its launch, the second 250 us before its own (a device
+    # clock mapped wrongly onto the host's), the third has no launch event
+    def corr(e, c):
+        return dict(e, args={"correlation": c})
+
+    events = [_x("Trace", "profile", 0, 1000),
+              corr(_x("cuda_runtime", "cudaLaunchKernel", 100, 5), 7),
+              corr(_x("cuda_runtime", "cudaLaunchKernel", 500, 5), 8),
+              corr(_x("cuda_runtime", "cudaMemcpyAsync", 600, 5), 9),
+              corr(_x("kernel", "a", 104, 10), 7),
+              corr(_x("kernel", "b", 250, 10), 8),
+              corr(_x("kernel", "c", 5, 10), 11)]
+    path = tmp_path / "t.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    assert tprof.trace_summary(str(path))["lead_ms"] == pytest.approx(0.25)
+    # the kernels on time: no lead
+    path.write_text(json.dumps({"traceEvents": events[:5]}))
+    assert tprof.trace_summary(str(path))["lead_ms"] == 0.0
+    # launches on the host, no kernel record: no trace of the device
+    path.write_text(json.dumps({"traceEvents": events[:4]}))
+    with pytest.raises(ValueError,
+                       match=r"no CUDA kernel event \(2 launch calls"):
+        tprof.trace_summary(str(path))
 
 
 _IMPORT_WITHOUT_CUDA = r"""

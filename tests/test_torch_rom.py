@@ -1,7 +1,8 @@
 """The port's host copies on the ROM session path against the JAX package's:
 RomSet (fields, checksums, check(), version), the track tables
 (get_track_info, list_streams), the Python ControlTracer, and the ROM half
-of the native tracer (trace_frames with port events, full_reset).  Two
+of the native tracer (trace_frames with port events, full_reset;
+trace_rows, read_host_bytes and assemble_controls_native).  Two
 ROMs: the synthetic one of test_romgen._make_spec, and the committed
 dcsexplorer_tpu_torch/data/session6.zip, whose chip images must equal a
 fresh romgen build of the same spec (and likewise data/session93a.zip, the
@@ -28,7 +29,9 @@ from dcsexplorer_tpu_torch.rom import zipload as tzip
 from dcsexplorer_tpu_torch.vm import native_tracer as tnt
 from dcsexplorer_tpu_torch.vm import tracer as ttracer
 
+from .test_native_tracer import _fuzz_events
 from .test_romgen import _make_spec
+from .torch_native_guard import reference_native_lib
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "assets", "streams")
@@ -212,6 +215,61 @@ def test_native_rom_trace_matches_python_tracer():
         live = {c: (rs.make_pointer(int(addr[t, c])).pos, int(fidx[t, c]),
                     int(mix[t, c])) for c in range(8) if addr[t, c] >= 0}
         assert live == {c: (k[1], f, m) for (c, k, f, m) in entries}, t
+
+
+@pytest.mark.parametrize("seed", [21, 22])
+def test_native_rows_and_host_bytes(seed):
+    """tests/test_native_tracer.py's parity on the port: trace_frames +
+    assemble_controls_native equal the Python tracer's assemble_controls
+    (over the port's bank), trace_rows (trace, row assembly and narrowing
+    in one C pass) equals those two, and read_host_bytes equals the Python
+    tracer's host.rx and the JAX native tracer's bytes."""
+    from dcsexplorer_tpu_torch.models import pipeline as tpl
+    from dcsexplorer_tpu_torch.models import romplay as trp
+    data, name = _zip("synth")
+    rs, _ = tzip.load_zip_data(data, zip_name=name)
+    assert rs.check() == 1
+    bank = trp.build_rom_bank(rs, "cpu")
+    n = 400
+    events = _fuzz_events(np.random.default_rng(seed), n, [1, 2, 4, 5, 7])
+
+    py = ttracer.ControlTracer()
+    py.default_volume = 0x80
+    py.load_rom_set(rs)
+    py.soft_boot()
+    py.trace_frames(n, events=_callable_events(events))
+    rows_p, mix_p, vol_p = tpl.assemble_controls(py, bank)
+
+    t1 = tnt.NativeControlTracer(rs, default_volume=0x80)
+    t1.soft_boot()
+    out_s, out_f, out_m, vol = t1.trace_frames(n, events=events)
+    rows, mix = tnt.assemble_controls_native(rs, bank, out_s, out_f, out_m)
+    assert np.array_equal(vol, vol_p)
+    assert np.array_equal(rows, rows_p) and np.array_equal(mix, mix_p)
+    assert rows.dtype == mix.dtype == np.int32 and (rows > 0).any()
+
+    addr_tab, off_tab = tnt.stream_row_table(rs, bank)
+    rows_f = np.zeros((n, 8), np.uint16)
+    mix_f = np.zeros((n, 8), np.uint16)
+    vol_f = np.zeros(n, np.uint8)
+    t2 = tnt.NativeControlTracer(rs, default_volume=0x80)
+    t2.soft_boot()
+    t2.trace_rows(n, addr_tab, off_tab, rows_f, mix_f, vol_f, events=events)
+    assert np.array_equal(rows_f, rows.astype(np.uint16))
+    assert np.array_equal(mix_f, mix.astype(np.uint16))
+    assert np.array_equal(vol_f, vol.astype(np.uint8))
+
+    host = t1.read_host_bytes()
+    assert host and host == bytes(py.host.rx) == t2.read_host_bytes()
+    reference_native_lib()
+    jrs, _ = jzip.load_zip_data(data, zip_name=name)
+    jrs.check()
+    jt = jnt.NativeControlTracer(jrs, default_volume=0x80)
+    jt.soft_boot()
+    jt.trace_frames(n, events=events)
+    assert jt.read_host_bytes() == host
+    for tr in (t1, t2, jt):
+        tr.close()
 
 
 def test_session6_zip_is_the_romgen_build():
