@@ -40,11 +40,11 @@ import time
 import numpy as np
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from ..format import tables as T
 from ..models.flatsweep import _device
 from ..ops import kernels
+from ..utils.profiling import span
 from . import core94 as c94
 from . import encoder as enc_mod
 
@@ -545,12 +545,12 @@ def _run(enc, x, nf, arrs, dev, spans=None):
     rows on the host (a pinned buffer filled asynchronously, with the event
     that marks its arrival, on a card).  On a card, spans (a list) receives
     the pair of CUDA events around the program's launches."""
-    with record_function("upload"):
+    with span("dcs.encode.upload"):
         d = _to_device(dict(x=x, nf=nf, keep=arrs["keep"], thr=arrs["thr"],
                             dlim=arrs["dlim"], cape=arrs["cape"],
                             hdr_scale=arrs["hdr_scale"],
                             wanted=arrs["wanted"]), dev)
-    with record_function("dispatch"):
+    with span("dcs.encode.dispatch"):
         if dev.type == "cuda" and spans is not None:
             spans.append((torch.cuda.Event(enable_timing=True),
                           torch.cuda.Event(enable_timing=True)))
@@ -569,7 +569,7 @@ def _run(enc, x, nf, arrs, dev, spans=None):
 
 
 def _fetch(host, done):
-    with record_function("fetch"):
+    with span("dcs.encode.fetch"):
         if done is not None:
             done.synchronize()
         return host.numpy()
@@ -599,7 +599,7 @@ def prepare_chunk(jobs, params, slots):
     """Host half of a chunk of (pcm, rate) jobs: int16 PCM, the host's own
     coefficients (for the emission) and setups, and the device inputs:
     (cis, setups, pcm [B, Fmax*240 + 240] int16, nf [B] int32, arrs)."""
-    with record_function("pack"):
+    with span("dcs.encode.pack"):
         cis, pcms = [], []
         for pcm, rate in jobs:
             p16 = enc_mod.pcm_to_int16(pcm, rate)
@@ -617,7 +617,7 @@ def prepare_chunk(jobs, params, slots):
 
 def emit_chunk(buf, cis, setups, slots):
     """The streams of a chunk from its packed rows: [(stream, n_frames)]."""
-    with record_function("emit"):
+    with span("dcs.encode.emit"):
         return [(_emit_from_packed(buf[i], cis[i], st, slots), st.n_frames)
                 for i, st in enumerate(setups)]
 

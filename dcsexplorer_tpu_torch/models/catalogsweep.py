@@ -32,6 +32,7 @@ from torch import nn
 from ..format import tables as T
 from ..ops import decode93, decode93a
 from ..refdec import decoder as rd
+from ..utils.profiling import span
 from ..vm import native_tracer as nt
 from .flatsweep import _device, to_int16
 
@@ -360,10 +361,11 @@ class Flat93Pipeline(nn.Module):
             self.register_buffer(name, t.to(dev))
 
     def forward(self, mix, vol, **cols):
-        tabs = dict(self.named_buffers())
-        decode = decode93.decode93_pcm_plain if self.plain \
-            else decode93.decode93_pcm
-        return decode(cols, None, mix, vol, cols["sid"], tabs)
+        with span("dcs.flat93"):
+            tabs = dict(self.named_buffers())
+            decode = decode93.decode93_pcm_plain if self.plain \
+                else decode93.decode93_pcm
+            return decode(cols, None, mix, vol, cols["sid"], tabs)
 
 
 def run_flat93(sweep, device="cuda"):

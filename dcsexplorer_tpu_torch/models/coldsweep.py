@@ -29,18 +29,18 @@ event before it reads them.  uint16 columns travel as their int16 bit
 pattern and widen on the card (``& 0xFFFF``: ``.int()`` alone would
 sign-extend them).
 
-Each host stage runs in a ``torch.profiler.record_function`` span: pack,
-upload, dispatch, fetch.  The entry points run on the card unless the
-caller names another device; on the CPU the plain versions run and every
-time is the host's.
+Each host stage runs in a span (``utils.profiling.span``):
+``dcs.cold.pack``, ``.upload``, ``.dispatch``, ``.fetch``.  The entry
+points run on the card unless the caller names another device; on the CPU
+the plain versions run and every time is the host's.
 """
 
 import time
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
+from ..utils.profiling import span
 from . import catalogsweep as cs
 from . import flatsweep as fs
 
@@ -176,19 +176,19 @@ def cold_flat94(streams, copies, n_chunks, device="cuda"):
     pending, chunks = [], []
     audio = 0
     for cat in split_copies(streams, copies, n_chunks):
-        with record_function("pack"):
+        with span("dcs.cold.pack"):
             t0 = time.perf_counter()
             sw = fs.FlatSweep(cat).pack()
             ca = sw.compact_host_arrays()
             n_steps = ca.pop("n_steps")
             t1 = time.perf_counter()
-        with record_function("upload"):
+        with span("dcs.cold.upload"):
             cols, marks = cd.upload(ca)
         pending.append((cols, n_steps, marks))
         chunks.append(dict(pack_ms=(t1 - t0) * 1e3,
                            enqueue_ms=(time.perf_counter() - t1) * 1e3))
         audio += sw.audio_samples
-    with record_function("dispatch"):
+    with span("dcs.cold.dispatch"):
         for _, _, marks in pending:
             cd.wait(marks)
         start = cd.mark()
@@ -196,7 +196,7 @@ def cold_flat94(streams, copies, n_chunks, device="cuda"):
                                          for c, n, _ in pending]))
         chk = cs.checksum(pcm)
         end = cd.mark()
-    with record_function("fetch"):
+    with span("dcs.cold.fetch"):
         t0 = time.perf_counter()
         value = int(chk)
         fetch_ms = (time.perf_counter() - t0) * 1e3
@@ -236,22 +236,22 @@ def cold_catalog(cat94, cat93b, cat93a, device="cuda"):
     for name, pack in (("94", pack94),
                        ("93b", lambda: pack93(cat93b, False)),
                        ("93a1", lambda: pack93(cat93a, True))):
-        with record_function("pack"):
+        with span("dcs.cold.pack"):
             t0 = time.perf_counter()
             sw, cols, n_steps = pack()
             families[name] = dict(host_ms=(time.perf_counter() - t0) * 1e3,
                                   frames=sw.n_frames_total,
                                   audio_s=sw.audio_samples / fs.SAMPLE_RATE)
         audio += sw.audio_samples
-        with record_function("upload"):
+        with span("dcs.cold.upload"):
             cols, upload[name] = cd.upload(cols)
-        with record_function("dispatch"):
+        with span("dcs.cold.dispatch"):
             cd.wait(upload[name])
             start = cd.mark()
             pcm = (cd.pipe94(**_widen94(cols, n_steps)) if name == "94"
                    else cd.pipe93(**cols))
             pending.append((name, cs.checksum(pcm), start, cd.mark()))
-    with record_function("fetch"):
+    with span("dcs.cold.fetch"):
         t0 = time.perf_counter()
         checks = {name: int(chk) for name, chk, _, _ in pending}
         fetch_ms = (time.perf_counter() - t0) * 1e3

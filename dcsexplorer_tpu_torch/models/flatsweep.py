@@ -29,6 +29,7 @@ from ..ops import band_decode as bd
 from ..ops import prescan
 from ..ops import transform as tf
 from ..refdec import decoder as rd
+from ..utils.profiling import span
 from ..vm import native_tracer as nt
 
 SAMPLE_RATE = 31250
@@ -143,9 +144,11 @@ class FlatPipeline(nn.Module):
 
     def forward(self, pool_u8, sid, start_bit, bt_u8, mix_u16, vol_u8,
                 hdr_tab, fmt_tab, sub_tab, n_steps):
-        return flat_pipeline_packed(pool_u8, sid, start_bit, bt_u8, mix_u16,
-                                    vol_u8, hdr_tab, fmt_tab, sub_tab, n_steps,
-                                    dict(self.named_buffers()), self.plain)
+        with span("dcs.flat94"):
+            return flat_pipeline_packed(pool_u8, sid, start_bit, bt_u8,
+                                        mix_u16, vol_u8, hdr_tab, fmt_tab,
+                                        sub_tab, n_steps,
+                                        dict(self.named_buffers()), self.plain)
 
 
 def packed_to_device(arrays, device="cuda"):

@@ -30,11 +30,11 @@ from concurrent.futures import ThreadPoolExecutor
 
 import numpy as np
 import torch
-from torch.profiler import record_function
 
 from ..ops import kernels
 from ..refdec import decoder as rd
 from ..rom import tracks as rtracks
+from ..utils.profiling import span
 from ..vm import native_tracer as nt
 from . import pipeline as pl
 from .flatsweep import _device
@@ -235,7 +235,7 @@ class SessionServer:
         if len(events_list) != self.n_sessions:
             raise ValueError(f"{len(events_list)} event dicts for "
                              f"{self.n_sessions} sessions")
-        with record_function("trace"):
+        with span("dcs.serve.trace"):
             S, C, T = self.n_sessions, self.n_ch, self.n_frames
             while True:
                 E = self.seg_e
@@ -258,13 +258,19 @@ class SessionServer:
         """The device half of one batch: the wire (uint8 tensor on the
         server's device) -> the batch's result on the device, int16 PCM
         [S, n_frames * 240] or reduce_fn's; each session starts from
-        silence and a zero overlap state."""
+        silence and a zero overlap state.  Spans: ``dcs.session`` around
+        ``.expand`` (segments94), ``.decode`` and ``.reduce``."""
         S, C, T = self.n_sessions, self.n_ch, self.n_frames
         expand = segments94_plain if self.plain else segments94
-        rows, mix, vol = expand(wire, S, T, C, E)
-        words = self.decoder(rows, mix, vol, self._sid).reshape(S, T * 240)
-        return (self.reduce_fn(words) if self.reduce_fn is not None
-                else pl.to_int16(words))
+        with span("dcs.session"):
+            with span("dcs.session.expand"):
+                rows, mix, vol = expand(wire, S, T, C, E)
+            with span("dcs.session.decode"):
+                words = self.decoder(rows, mix, vol, self._sid) \
+                    .reshape(S, T * 240)
+            with span("dcs.session.reduce"):
+                return (self.reduce_fn(words) if self.reduce_fn is not None
+                        else pl.to_int16(words))
 
     def _enqueue(self, wire, E):
         """Upload a wire, enqueue the batch's kernels and the copy of its
@@ -274,9 +280,9 @@ class SessionServer:
         faster into pinned memory (chip_smoke.py phase 9)."""
         buf = torch.from_numpy(wire)
         if self.device.type != "cpu":
-            with record_function("upload"):
+            with span("dcs.serve.upload"):
                 buf = buf.to(self.device)
-        with record_function("dispatch"):
+        with span("dcs.serve.dispatch"):
             out = self.decode_wire(buf, E)
             if self.device.type == "cpu":
                 return None, out
@@ -315,7 +321,7 @@ class SessionServer:
                 flight.append(self._enqueue(*prep.popleft().result()))
             done, host = flight.popleft()
             if done is not None:
-                with record_function("fetch"):
+                with span("dcs.serve.fetch"):
                     done.synchronize()
             refill()
             yield host.numpy()

@@ -23,6 +23,8 @@ import subprocess
 
 import torch
 
+from ..utils.profiling import span
+
 
 _PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 _REPO = os.path.dirname(_PKG)
@@ -260,45 +262,48 @@ def decode94_fb(pool_u8, sid, start_bit, bt_u8, mix, hdr_tab, fmt_tab,
                 sub_tab, n_steps, tabs):
     """Compact columns -> frame buffers on the card (csrc/decode94_fb.cu);
     see band_decode.decode94_fb_plain for the contract."""
-    _check_columns(pool_u8, sid, start_bit, bt_u8, hdr_tab, fmt_tab, sub_tab,
-                   n_steps, tabs)
-    N = sid.shape[0]
-    S = hdr_tab.shape[0]
-    dev = pool_u8.device
-    _check("mix", mix, torch.int32, (N,), dev)
-    out = torch.empty((N, 512), dtype=torch.int32, device=dev)
-    if N:
-        _launch("decode94_fb", "dcs_decode94_fb", dev,
-                pool_u8.data_ptr(), pool_u8.numel(), sid.data_ptr(),
-                start_bit.data_ptr(), bt_u8.data_ptr(), mix.data_ptr(),
-                hdr_tab.data_ptr(), fmt_tab.data_ptr(), sub_tab.data_ptr(), S,
-                *[tabs[name].data_ptr() for name, _ in _FB_TABLES],
-                out.data_ptr(), N, min(n_steps, 256))
-    return out
+    with span("dcs.kernel.decode94_fb"):
+        _check_columns(pool_u8, sid, start_bit, bt_u8, hdr_tab, fmt_tab,
+                       sub_tab, n_steps, tabs)
+        N = sid.shape[0]
+        S = hdr_tab.shape[0]
+        dev = pool_u8.device
+        _check("mix", mix, torch.int32, (N,), dev)
+        out = torch.empty((N, 512), dtype=torch.int32, device=dev)
+        if N:
+            _launch("decode94_fb", "dcs_decode94_fb", dev,
+                    pool_u8.data_ptr(), pool_u8.numel(), sid.data_ptr(),
+                    start_bit.data_ptr(), bt_u8.data_ptr(), mix.data_ptr(),
+                    hdr_tab.data_ptr(), fmt_tab.data_ptr(),
+                    sub_tab.data_ptr(), S,
+                    *[tabs[name].data_ptr() for name, _ in _FB_TABLES],
+                    out.data_ptr(), N, min(n_steps, 256))
+        return out
 
 
 def dequant_mix(pos_vals, scale, total, mix, fb_prev=None):
     """Dequant/mix on the card (csrc/dequant_mix.cu); see
     band_decode.dequant_mix_plain for the contract.  fb_prev None means
     silence and is never materialized."""
-    F, S = pos_vals.shape
-    dev = pos_vals.device
-    _check("pos_vals", pos_vals, torch.int32, (F, S))
-    if not 1 <= S <= 511:
-        raise ValueError(f"{S} positions per frame; expected 1..511")
-    _check("scale", scale, torch.int32, (F, S), dev)
-    _check("total", total, torch.int32, (F,), dev)
-    _check("mix", mix, torch.int32, (F,), dev)
-    if fb_prev is not None:
-        _check("fb_prev", fb_prev, torch.int32, (F, 512), dev)
-    out = torch.empty((F, 512), dtype=torch.int32, device=dev)
-    if F:
-        _launch("dequant_mix", "dcs_dequant_mix", dev,
-                pos_vals.data_ptr(), scale.data_ptr(), total.data_ptr(),
-                mix.data_ptr(),
-                None if fb_prev is None else fb_prev.data_ptr(),
-                out.data_ptr(), F, S)
-    return out
+    with span("dcs.kernel.dequant_mix"):
+        F, S = pos_vals.shape
+        dev = pos_vals.device
+        _check("pos_vals", pos_vals, torch.int32, (F, S))
+        if not 1 <= S <= 511:
+            raise ValueError(f"{S} positions per frame; expected 1..511")
+        _check("scale", scale, torch.int32, (F, S), dev)
+        _check("total", total, torch.int32, (F,), dev)
+        _check("mix", mix, torch.int32, (F,), dev)
+        if fb_prev is not None:
+            _check("fb_prev", fb_prev, torch.int32, (F, 512), dev)
+        out = torch.empty((F, 512), dtype=torch.int32, device=dev)
+        if F:
+            _launch("dequant_mix", "dcs_dequant_mix", dev,
+                    pos_vals.data_ptr(), scale.data_ptr(), total.data_ptr(),
+                    mix.data_ptr(),
+                    None if fb_prev is None else fb_prev.data_ptr(),
+                    out.data_ptr(), F, S)
+        return out
 
 
 def _flags(name, t, shape, device):
@@ -316,46 +321,48 @@ def dequant_mix_dense(dense, scale, fb_idx, valid, mix, fb_prev=None,
     decode's widths: dense and scale int32, fb_idx int16, valid uint8 or
     bool, all [F, 256]; mix [F] int32; fb_prev [F, 512] int32 and active
     [F] (uint8 or bool) may each be None."""
-    F = dense.shape[0]
-    dev = dense.device
-    _check("dense", dense, torch.int32, (F, 256))
-    _check("scale", scale, torch.int32, (F, 256), dev)
-    _check("fb_idx", fb_idx, torch.int16, (F, 256), dev)
-    valid = _flags("valid", valid, (F, 256), dev)
-    _check("mix", mix, torch.int32, (F,), dev)
-    if fb_prev is not None:
-        _check("fb_prev", fb_prev, torch.int32, (F, 512), dev)
-    if active is not None:
-        active = _flags("active", active, (F,), dev)
-    out = torch.empty((F, 512), dtype=torch.int32, device=dev)
-    if F:
-        _launch("dequant_mix_dense", "dcs_dequant_mix_dense", dev,
-                dense.data_ptr(), scale.data_ptr(), fb_idx.data_ptr(),
-                valid.data_ptr(), mix.data_ptr(),
-                None if fb_prev is None else fb_prev.data_ptr(),
-                None if active is None else active.data_ptr(),
-                out.data_ptr(), F)
-    return out
+    with span("dcs.kernel.dequant_mix_dense"):
+        F = dense.shape[0]
+        dev = dense.device
+        _check("dense", dense, torch.int32, (F, 256))
+        _check("scale", scale, torch.int32, (F, 256), dev)
+        _check("fb_idx", fb_idx, torch.int16, (F, 256), dev)
+        valid = _flags("valid", valid, (F, 256), dev)
+        _check("mix", mix, torch.int32, (F,), dev)
+        if fb_prev is not None:
+            _check("fb_prev", fb_prev, torch.int32, (F, 512), dev)
+        if active is not None:
+            active = _flags("active", active, (F,), dev)
+        out = torch.empty((F, 512), dtype=torch.int32, device=dev)
+        if F:
+            _launch("dequant_mix_dense", "dcs_dequant_mix_dense", dev,
+                    dense.data_ptr(), scale.data_ptr(), fb_idx.data_ptr(),
+                    valid.data_ptr(), mix.data_ptr(),
+                    None if fb_prev is None else fb_prev.data_ptr(),
+                    None if active is None else active.data_ptr(),
+                    out.data_ptr(), F)
+        return out
 
 
 def transform94_planar(fb, vol_shift, p2_c0, p2_c1, cos, sin):
     """Inverse transform on the card (csrc/transform94.cu); see
     transform.transform94_planar_plain for the contract."""
-    F = fb.shape[0]
-    dev = fb.device
-    _check("fb", fb, torch.int32, (F, 512))
-    _check("vol_shift", vol_shift, torch.int32, (F,), dev)
-    for name, t, n in (("p2_c0", p2_c0, 64), ("p2_c1", p2_c1, 64),
-                       ("cos", cos, 128), ("sin", sin, 128)):
-        _check(name, t, torch.int32, (n,), dev)
-    re = torch.empty((F, 128), dtype=torch.int32, device=dev)
-    im = torch.empty((F, 128), dtype=torch.int32, device=dev)
-    if F:
-        _launch("transform94_planar", "dcs_transform94_planar", dev,
-                fb.data_ptr(), vol_shift.data_ptr(), p2_c0.data_ptr(),
-                p2_c1.data_ptr(), cos.data_ptr(), sin.data_ptr(),
-                re.data_ptr(), im.data_ptr(), F)
-    return re, im
+    with span("dcs.kernel.transform94_planar"):
+        F = fb.shape[0]
+        dev = fb.device
+        _check("fb", fb, torch.int32, (F, 512))
+        _check("vol_shift", vol_shift, torch.int32, (F,), dev)
+        for name, t, n in (("p2_c0", p2_c0, 64), ("p2_c1", p2_c1, 64),
+                           ("cos", cos, 128), ("sin", sin, 128)):
+            _check(name, t, torch.int32, (n,), dev)
+        re = torch.empty((F, 128), dtype=torch.int32, device=dev)
+        im = torch.empty((F, 128), dtype=torch.int32, device=dev)
+        if F:
+            _launch("transform94_planar", "dcs_transform94_planar", dev,
+                    fb.data_ptr(), vol_shift.data_ptr(), p2_c0.data_ptr(),
+                    p2_c1.data_ptr(), cos.data_ptr(), sin.data_ptr(),
+                    re.data_ptr(), im.data_ptr(), F)
+        return re, im
 
 
 # the codec tables transform94_pcm reads, in the order of its C arguments
@@ -370,56 +377,58 @@ def transform94_pcm(fb, vol_shift, sid, tabs, overlap0=None):
     transform.transform94_pcm_plain for the contract.  With overlap0
     [G, 16] the carry at a run's start is overlap0[sid], and the result is
     (pcm, last_ov [G, 16])."""
-    F = fb.shape[0]
-    dev = fb.device
-    _check("fb", fb, torch.int32, (F, 512))
-    _check("vol_shift", vol_shift, torch.int32, (F,), dev)
-    _check("sid", sid, torch.int32, (F,), dev)
-    for name, n in _PCM_TABLES:
-        _check(name, tabs[name], torch.int32, (n,), dev)
-    pcm = torch.empty((F, 240), dtype=torch.int32, device=dev)
-    aligned = [("fb", fb), ("pcm", pcm)]
-    last_ov = None
-    if overlap0 is not None:
-        _check("overlap0", overlap0, torch.int32, (overlap0.shape[0], 16),
-               dev)
-        last_ov = overlap0.clone()        # ids with no frame keep theirs
-        aligned += [("overlap0", overlap0), ("last_ov", last_ov)]
-    # the kernel loads and stores 16-byte words of each row
-    for name, t in aligned:
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: not 16-byte aligned")
-    if F:
-        _launch("transform94_pcm" if overlap0 is None
-                else "transform94_pcm_carry", "dcs_transform94_pcm", dev,
-                fb.data_ptr(), vol_shift.data_ptr(), sid.data_ptr(),
-                *[tabs[name].data_ptr() for name, _ in _PCM_TABLES],
-                None if overlap0 is None else overlap0.data_ptr(),
-                None if last_ov is None else last_ov.data_ptr(),
-                0 if overlap0 is None else overlap0.shape[0],
-                pcm.data_ptr(), F)
-    return pcm if overlap0 is None else (pcm, last_ov)
+    kernel = "transform94_pcm" if overlap0 is None else "transform94_pcm_carry"
+    with span(f"dcs.kernel.{kernel}"):
+        F = fb.shape[0]
+        dev = fb.device
+        _check("fb", fb, torch.int32, (F, 512))
+        _check("vol_shift", vol_shift, torch.int32, (F,), dev)
+        _check("sid", sid, torch.int32, (F,), dev)
+        for name, n in _PCM_TABLES:
+            _check(name, tabs[name], torch.int32, (n,), dev)
+        pcm = torch.empty((F, 240), dtype=torch.int32, device=dev)
+        aligned = [("fb", fb), ("pcm", pcm)]
+        last_ov = None
+        if overlap0 is not None:
+            _check("overlap0", overlap0, torch.int32, (overlap0.shape[0], 16),
+                   dev)
+            last_ov = overlap0.clone()        # ids with no frame keep theirs
+            aligned += [("overlap0", overlap0), ("last_ov", last_ov)]
+        # the kernel loads and stores 16-byte words of each row
+        for name, t in aligned:
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: not 16-byte aligned")
+        if F:
+            _launch(kernel, "dcs_transform94_pcm", dev,
+                    fb.data_ptr(), vol_shift.data_ptr(), sid.data_ptr(),
+                    *[tabs[name].data_ptr() for name, _ in _PCM_TABLES],
+                    None if overlap0 is None else overlap0.data_ptr(),
+                    None if last_ov is None else last_ov.data_ptr(),
+                    0 if overlap0 is None else overlap0.shape[0],
+                    pcm.data_ptr(), F)
+        return pcm if overlap0 is None else (pcm, last_ov)
 
 
 def decode94_bank(pool_u8, sid, start_bit, bt_u8, hdr_tab, fmt_tab, sub_tab,
                   n_steps, tabs):
     """A session bank's rows on the card (csrc/decode94_bank.cu); see
     band_decode.decode94_bank_plain for the contract."""
-    _check_columns(pool_u8, sid, start_bit, bt_u8, hdr_tab, fmt_tab, sub_tab,
-                   n_steps, tabs)
-    N = sid.shape[0]
-    S = hdr_tab.shape[0]
-    dev = pool_u8.device
-    if not N:
-        return torch.zeros((1, 256), dtype=torch.int16, device=dev)
-    out = torch.empty((N + 1, 256), dtype=torch.int16, device=dev)
-    _launch("decode94_bank", "dcs_decode94_bank", dev,
-            pool_u8.data_ptr(), pool_u8.numel(), sid.data_ptr(),
-            start_bit.data_ptr(), bt_u8.data_ptr(), hdr_tab.data_ptr(),
-            fmt_tab.data_ptr(), sub_tab.data_ptr(), S,
-            *[tabs[name].data_ptr() for name, _ in _FB_TABLES],
-            out.data_ptr(), N, min(n_steps, 256))
-    return out
+    with span("dcs.kernel.decode94_bank"):
+        _check_columns(pool_u8, sid, start_bit, bt_u8, hdr_tab, fmt_tab,
+                       sub_tab, n_steps, tabs)
+        N = sid.shape[0]
+        S = hdr_tab.shape[0]
+        dev = pool_u8.device
+        if not N:
+            return torch.zeros((1, 256), dtype=torch.int16, device=dev)
+        out = torch.empty((N + 1, 256), dtype=torch.int16, device=dev)
+        _launch("decode94_bank", "dcs_decode94_bank", dev,
+                pool_u8.data_ptr(), pool_u8.numel(), sid.data_ptr(),
+                start_bit.data_ptr(), bt_u8.data_ptr(), hdr_tab.data_ptr(),
+                fmt_tab.data_ptr(), sub_tab.data_ptr(), S,
+                *[tabs[name].data_ptr() for name, _ in _FB_TABLES],
+                out.data_ptr(), N, min(n_steps, 256))
+        return out
 
 
 # the largest segment table: 8 channels of 255 segments
@@ -430,42 +439,45 @@ def segments94(wire, S, T, C, E):
     """The control wire -> dense rows, mix [S*T, C] and vol [S*T], int32, on
     the card (csrc/segments94.cu); see romplay.segments94_plain for the
     contract."""
-    if not (1 <= C <= MAX_CHANNELS and 1 <= E <= MAX_SEGMENTS):
-        raise ValueError(f"{C} channels of {E} segments; expected 1..8 "
-                         "and 1..255")
-    if not (S >= 0 and 0 <= T < 0xFFFF and S * T * C < 1 << 31
-            and 7 * S * C * E + S * T < 1 << 31):
-        raise ValueError(f"{S} sessions of {T} frames")
-    dev = wire.device
-    _check("wire", wire, torch.uint8, (7 * S * C * E + S * T,))
-    rows = torch.empty((S * T, C), dtype=torch.int32, device=dev)
-    mix = torch.empty((S * T, C), dtype=torch.int32, device=dev)
-    vol = torch.empty((S * T,), dtype=torch.int32, device=dev)
-    if S and T:
-        _launch("segments94", "dcs_segments94", dev, wire.data_ptr(), S, T,
-                C, E, rows.data_ptr(), mix.data_ptr(), vol.data_ptr())
-    return rows, mix, vol
+    with span("dcs.kernel.segments94"):
+        if not (1 <= C <= MAX_CHANNELS and 1 <= E <= MAX_SEGMENTS):
+            raise ValueError(f"{C} channels of {E} segments; expected 1..8 "
+                             "and 1..255")
+        if not (S >= 0 and 0 <= T < 0xFFFF and S * T * C < 1 << 31
+                and 7 * S * C * E + S * T < 1 << 31):
+            raise ValueError(f"{S} sessions of {T} frames")
+        dev = wire.device
+        _check("wire", wire, torch.uint8, (7 * S * C * E + S * T,))
+        rows = torch.empty((S * T, C), dtype=torch.int32, device=dev)
+        mix = torch.empty((S * T, C), dtype=torch.int32, device=dev)
+        vol = torch.empty((S * T,), dtype=torch.int32, device=dev)
+        if S and T:
+            _launch("segments94", "dcs_segments94", dev, wire.data_ptr(), S, T,
+                    C, E, rows.data_ptr(), mix.data_ptr(), vol.data_ptr())
+        return rows, mix, vol
 
 
 def session_mix94(scaled, rows, mix):
     """Multi-voice dequant/mix on the card (csrc/session_mix94.cu); see
     band_decode.session_mix94_plain for the contract."""
-    R = scaled.shape[0]
-    F, C = rows.shape
-    dev = scaled.device
-    _check("scaled", scaled, torch.int16, (R, 256))
-    _check("rows", rows, torch.int32, (F, C), dev)
-    _check("mix", mix, torch.int32, (F, C), dev)
-    if not 1 <= C <= MAX_CHANNELS:
-        raise ValueError(f"{C} channels; expected 1..8")
-    out = torch.empty((F, 512), dtype=torch.int32, device=dev)
-    for name, t in (("scaled", scaled), ("out", out)):
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: not 16-byte aligned")
-    if F:
-        _launch("session_mix94", "dcs_session_mix94", dev, scaled.data_ptr(),
-                R, rows.data_ptr(), mix.data_ptr(), out.data_ptr(), F, C)
-    return out
+    with span("dcs.kernel.session_mix94"):
+        R = scaled.shape[0]
+        F, C = rows.shape
+        dev = scaled.device
+        _check("scaled", scaled, torch.int16, (R, 256))
+        _check("rows", rows, torch.int32, (F, C), dev)
+        _check("mix", mix, torch.int32, (F, C), dev)
+        if not 1 <= C <= MAX_CHANNELS:
+            raise ValueError(f"{C} channels; expected 1..8")
+        out = torch.empty((F, 512), dtype=torch.int32, device=dev)
+        for name, t in (("scaled", scaled), ("out", out)):
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: not 16-byte aligned")
+        if F:
+            _launch("session_mix94", "dcs_session_mix94", dev,
+                    scaled.data_ptr(), R, rows.data_ptr(), mix.data_ptr(),
+                    out.data_ptr(), F, C)
+        return out
 
 
 def _check_columns93(pool_u8, frame_word, sid, kind_u8, kw_u8, bit_rel, prv,
@@ -508,19 +520,21 @@ def decode93_fb(pool_u8, frame_word, sid, kind_u8, kw_u8, bit_rel, prv,
     columns (ops/decode93.py) and rows [F, C] of them per output frame and
     voice (None: the flat sweep, row f for frame f, mix [F]) with their
     mixes -> [F, 512] int32; see decode93.decode93_fb_plain."""
-    F, C = _check_columns93(pool_u8, frame_word, sid, kind_u8, kw_u8,
-                            bit_rel, prv, code_u8, band_tab, rows, mix, pair,
-                            inputs)
-    out = torch.empty((F, 512), dtype=torch.int32, device=pool_u8.device)
-    if F:
-        _launch("decode93_fb", "dcs_decode93_fb", pool_u8.device,
-                pool_u8.data_ptr(), pool_u8.numel(), frame_word.data_ptr(),
-                sid.data_ptr(), kind_u8.data_ptr(), kw_u8.data_ptr(),
-                bit_rel.data_ptr(), prv.data_ptr(), code_u8.data_ptr(),
-                band_tab.data_ptr(), band_tab.shape[0], pair.data_ptr(),
-                inputs.data_ptr(), None if rows is None else rows.data_ptr(),
-                mix.data_ptr(), out.data_ptr(), F, C, frame_word.shape[0])
-    return out
+    with span("dcs.kernel.decode93_fb"):
+        F, C = _check_columns93(pool_u8, frame_word, sid, kind_u8, kw_u8,
+                                bit_rel, prv, code_u8, band_tab, rows, mix,
+                                pair, inputs)
+        out = torch.empty((F, 512), dtype=torch.int32, device=pool_u8.device)
+        if F:
+            _launch("decode93_fb", "dcs_decode93_fb", pool_u8.device,
+                    pool_u8.data_ptr(), pool_u8.numel(), frame_word.data_ptr(),
+                    sid.data_ptr(), kind_u8.data_ptr(), kw_u8.data_ptr(),
+                    bit_rel.data_ptr(), prv.data_ptr(), code_u8.data_ptr(),
+                    band_tab.data_ptr(), band_tab.shape[0], pair.data_ptr(),
+                    inputs.data_ptr(),
+                    None if rows is None else rows.data_ptr(),
+                    mix.data_ptr(), out.data_ptr(), F, C, frame_word.shape[0])
+        return out
 
 
 # the codec tables transform93_pcm reads, in the order of its C arguments
@@ -534,35 +548,36 @@ def transform93_pcm(fb, vol_shift, sid, tabs, overlap0=None):
     transform.transform93_pcm_plain for the contract.  With overlap0
     [G, 16] the carry at a run's start is overlap0[sid], and the result is
     (pcm, last_ov [G, 16])."""
-    F = fb.shape[0]
-    dev = fb.device
-    _check("fb", fb, torch.int32, (F, 512))
-    _check("vol_shift", vol_shift, torch.int32, (F,), dev)
-    _check("sid", sid, torch.int32, (F,), dev)
-    for name, n in _PCM93_TABLES:
-        _check(name, tabs[name], torch.int32, (n,), dev)
-    pcm = torch.empty((F, 240), dtype=torch.int32, device=dev)
-    aligned = [("fb", fb), ("pcm", pcm)]
-    last_ov = None
-    if overlap0 is not None:
-        _check("overlap0", overlap0, torch.int32, (overlap0.shape[0], 16),
-               dev)
-        last_ov = overlap0.clone()        # ids with no frame keep theirs
-        aligned.append(("overlap0", overlap0))
-    # the kernel loads 16-byte words of fb and overlap0, stores them to pcm
-    for name, t in aligned:
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: not 16-byte aligned")
-    if F:
-        _launch("transform93_pcm" if overlap0 is None
-                else "transform93_pcm_carry", "dcs_transform93_pcm", dev,
-                fb.data_ptr(), vol_shift.data_ptr(), sid.data_ptr(),
-                *[tabs[name].data_ptr() for name, _ in _PCM93_TABLES],
-                None if overlap0 is None else overlap0.data_ptr(),
-                None if last_ov is None else last_ov.data_ptr(),
-                0 if overlap0 is None else overlap0.shape[0],
-                pcm.data_ptr(), F)
-    return pcm if overlap0 is None else (pcm, last_ov)
+    kernel = "transform93_pcm" if overlap0 is None else "transform93_pcm_carry"
+    with span(f"dcs.kernel.{kernel}"):
+        F = fb.shape[0]
+        dev = fb.device
+        _check("fb", fb, torch.int32, (F, 512))
+        _check("vol_shift", vol_shift, torch.int32, (F,), dev)
+        _check("sid", sid, torch.int32, (F,), dev)
+        for name, n in _PCM93_TABLES:
+            _check(name, tabs[name], torch.int32, (n,), dev)
+        pcm = torch.empty((F, 240), dtype=torch.int32, device=dev)
+        aligned = [("fb", fb), ("pcm", pcm)]
+        last_ov = None
+        if overlap0 is not None:
+            _check("overlap0", overlap0, torch.int32, (overlap0.shape[0], 16),
+                   dev)
+            last_ov = overlap0.clone()        # ids with no frame keep theirs
+            aligned.append(("overlap0", overlap0))
+        # the kernel loads 16-byte words of fb and overlap0, stores them to pcm
+        for name, t in aligned:
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: not 16-byte aligned")
+        if F:
+            _launch(kernel, "dcs_transform93_pcm", dev,
+                    fb.data_ptr(), vol_shift.data_ptr(), sid.data_ptr(),
+                    *[tabs[name].data_ptr() for name, _ in _PCM93_TABLES],
+                    None if overlap0 is None else overlap0.data_ptr(),
+                    None if last_ov is None else last_ov.data_ptr(),
+                    0 if overlap0 is None else overlap0.shape[0],
+                    pcm.data_ptr(), F)
+        return pcm if overlap0 is None else (pcm, last_ov)
 
 
 # the codec tables decode93_pcm reads after the columns' pair and inputs,
@@ -580,42 +595,45 @@ def decode93_pcm(pool_u8, frame_word, sid, kind_u8, kw_u8, bit_rel, prv,
     frame buffers kept on chip; see decode93.decode93_pcm_plain.  With
     overlap0 [G, 16] the carry at a run's start is overlap0[frame_sid], and
     the result is (pcm, last_ov [G, 16])."""
-    pair, inputs = tabs["pair"], tabs["inputs"]
-    F, C = _check_columns93(pool_u8, frame_word, sid, kind_u8, kw_u8,
-                            bit_rel, prv, code_u8, band_tab, rows, mix, pair,
-                            inputs)
-    dev = pool_u8.device
-    _check("vol_shift", vol_shift, torch.int32, (F,), dev)
-    _check("frame_sid", frame_sid, torch.int32, (F,), dev)
-    for name, n in _DECODE93_PCM_TABLES:
-        _check(name, tabs[name], torch.int32, (n,), dev)
-    pcm = torch.empty((F, 240), dtype=torch.int32, device=dev)
-    aligned = [("pcm", pcm)]
-    last_ov = None
-    if overlap0 is not None:
-        _check("overlap0", overlap0, torch.int32, (overlap0.shape[0], 16),
-               dev)
-        last_ov = overlap0.clone()        # ids with no frame keep theirs
-        aligned.append(("overlap0", overlap0))
-    # the kernel loads 16-byte words of overlap0 and stores them to pcm
-    for name, t in aligned:
-        if t.data_ptr() % 16:
-            raise ValueError(f"{name}: not 16-byte aligned")
-    if F:
-        _launch("decode93_pcm" if overlap0 is None else "decode93_pcm_carry",
-                "dcs_decode93_pcm", dev, pool_u8.data_ptr(), pool_u8.numel(),
-                frame_word.data_ptr(), sid.data_ptr(), kind_u8.data_ptr(),
-                kw_u8.data_ptr(), bit_rel.data_ptr(), prv.data_ptr(),
-                code_u8.data_ptr(), band_tab.data_ptr(), band_tab.shape[0],
-                pair.data_ptr(), inputs.data_ptr(),
-                None if rows is None else rows.data_ptr(), mix.data_ptr(),
-                vol_shift.data_ptr(), frame_sid.data_ptr(),
-                *[tabs[name].data_ptr() for name, _ in _DECODE93_PCM_TABLES],
-                None if overlap0 is None else overlap0.data_ptr(),
-                None if last_ov is None else last_ov.data_ptr(),
-                0 if overlap0 is None else overlap0.shape[0],
-                pcm.data_ptr(), F, C, frame_word.shape[0])
-    return pcm if overlap0 is None else (pcm, last_ov)
+    kernel = "decode93_pcm" if overlap0 is None else "decode93_pcm_carry"
+    with span(f"dcs.kernel.{kernel}"):
+        pair, inputs = tabs["pair"], tabs["inputs"]
+        F, C = _check_columns93(pool_u8, frame_word, sid, kind_u8, kw_u8,
+                                bit_rel, prv, code_u8, band_tab, rows, mix,
+                                pair, inputs)
+        dev = pool_u8.device
+        _check("vol_shift", vol_shift, torch.int32, (F,), dev)
+        _check("frame_sid", frame_sid, torch.int32, (F,), dev)
+        for name, n in _DECODE93_PCM_TABLES:
+            _check(name, tabs[name], torch.int32, (n,), dev)
+        pcm = torch.empty((F, 240), dtype=torch.int32, device=dev)
+        aligned = [("pcm", pcm)]
+        last_ov = None
+        if overlap0 is not None:
+            _check("overlap0", overlap0, torch.int32, (overlap0.shape[0], 16),
+                   dev)
+            last_ov = overlap0.clone()        # ids with no frame keep theirs
+            aligned.append(("overlap0", overlap0))
+        # the kernel loads 16-byte words of overlap0 and stores them to pcm
+        for name, t in aligned:
+            if t.data_ptr() % 16:
+                raise ValueError(f"{name}: not 16-byte aligned")
+        if F:
+            _launch(kernel, "dcs_decode93_pcm", dev, pool_u8.data_ptr(),
+                    pool_u8.numel(),
+                    frame_word.data_ptr(), sid.data_ptr(), kind_u8.data_ptr(),
+                    kw_u8.data_ptr(), bit_rel.data_ptr(), prv.data_ptr(),
+                    code_u8.data_ptr(), band_tab.data_ptr(), band_tab.shape[0],
+                    pair.data_ptr(), inputs.data_ptr(),
+                    None if rows is None else rows.data_ptr(), mix.data_ptr(),
+                    vol_shift.data_ptr(), frame_sid.data_ptr(),
+                    *[tabs[name].data_ptr()
+                      for name, _ in _DECODE93_PCM_TABLES],
+                    None if overlap0 is None else overlap0.data_ptr(),
+                    None if last_ov is None else last_ov.data_ptr(),
+                    0 if overlap0 is None else overlap0.shape[0],
+                    pcm.data_ptr(), F, C, frame_word.shape[0])
+        return pcm if overlap0 is None else (pcm, last_ov)
 
 
 def normalize93_check(device):
@@ -669,20 +687,21 @@ def encode94_analyze(pcm, fq):
     """int16 PCM [B, Fmax*240 + 240] -> coefficients [B, Fmax, 255] int32
     on the card (csrc/encode94_analyze.cu); see
     encoder.device94.analyze94_plain for the contract."""
-    B, L = pcm.shape
-    F = (L - 240) // 240
-    dev = pcm.device
-    _check("pcm", pcm, torch.int16, (B, F * 240 + 240))
-    _check("fq", fq, torch.int16, (256, 255), dev)
-    if not (1 <= B < 65536 and F >= 1):
-        raise ValueError(f"{B} streams of {F} frames")
-    # the kernel copies each tile's span of a row in 16-byte chunks
-    if pcm.data_ptr() % 16:
-        raise ValueError("pcm: not 16-byte aligned")
-    ci = torch.empty((B, F, 255), dtype=torch.int32, device=dev)
-    _launch("encode94_analyze", "dcs_encode94_analyze", dev, pcm.data_ptr(),
-            fq.data_ptr(), ci.data_ptr(), B, F)
-    return ci
+    with span("dcs.kernel.encode94_analyze"):
+        B, L = pcm.shape
+        F = (L - 240) // 240
+        dev = pcm.device
+        _check("pcm", pcm, torch.int16, (B, F * 240 + 240))
+        _check("fq", fq, torch.int16, (256, 255), dev)
+        if not (1 <= B < 65536 and F >= 1):
+            raise ValueError(f"{B} streams of {F} frames")
+        # the kernel copies each tile's span of a row in 16-byte chunks
+        if pcm.data_ptr() % 16:
+            raise ValueError("pcm: not 16-byte aligned")
+        ci = torch.empty((B, F, 255), dtype=torch.int32, device=dev)
+        _launch("encode94_analyze", "dcs_encode94_analyze", dev,
+                pcm.data_ptr(), fq.data_ptr(), ci.data_ptr(), B, F)
+        return ci
 
 
 def encode94_decide(ci, sil_max, keep, thr, dlim, cape, hdr_scale, tabs):
@@ -694,19 +713,20 @@ def encode94_decide(ci, sil_max, keep, thr, dlim, cape, hdr_scale, tabs):
     encode_batch and DeviceEncoder94.forward) refuse other input, and the
     analysis clips to it.  Not checked here: that would cost a device
     reduction and a synchronisation on every call."""
-    B, F, K = _check_batch(ci, hdr_scale, keep)
-    dev = ci.device
-    for name, t in (("thr", thr), ("dlim", dlim), ("cape", cape)):
-        _check(name, t, torch.int32, (16,), dev)
-    tables = _check_encoder_tables(tabs, K, dev, 5)
-    out15 = torch.empty((B, K, F, 16, 5), dtype=torch.uint8, device=dev)
-    out14 = torch.empty_like(out15)
-    silent = torch.empty((B, F, 16), dtype=torch.bool, device=dev)
-    _launch("encode94_decide", "dcs_encode94_decide", dev, ci.data_ptr(),
-            hdr_scale.data_ptr(), keep.data_ptr(), *tables,
-            thr.data_ptr(), dlim.data_ptr(), cape.data_ptr(), int(sil_max),
-            out15.data_ptr(), out14.data_ptr(), silent.data_ptr(), B, K, F)
-    return out15, out14, silent
+    with span("dcs.kernel.encode94_decide"):
+        B, F, K = _check_batch(ci, hdr_scale, keep)
+        dev = ci.device
+        for name, t in (("thr", thr), ("dlim", dlim), ("cape", cape)):
+            _check(name, t, torch.int32, (16,), dev)
+        tables = _check_encoder_tables(tabs, K, dev, 5)
+        out15 = torch.empty((B, K, F, 16, 5), dtype=torch.uint8, device=dev)
+        out14 = torch.empty_like(out15)
+        silent = torch.empty((B, F, 16), dtype=torch.bool, device=dev)
+        _launch("encode94_decide", "dcs_encode94_decide", dev, ci.data_ptr(),
+                hdr_scale.data_ptr(), keep.data_ptr(), *tables,
+                thr.data_ptr(), dlim.data_ptr(), cape.data_ptr(), int(sil_max),
+                out15.data_ptr(), out14.data_ptr(), silent.data_ptr(), B, K, F)
+        return out15, out14, silent
 
 
 def encode94_analyze_geometry(device):
@@ -812,10 +832,11 @@ def encode94_select(ci, out15, out14, silent, nf, keep, hdr_scale, wanted,
     contract.  Fmax is a multiple of 16 (the frame bucket).  Precondition:
     |ci| <= ENCODE94_CI_LIMIT (2^20), where its reciprocal division is
     exact (see encode94_decide)."""
-    args, packed, _scratch = _select_args(ci, out15, out14, silent, nf, keep,
-                                          hdr_scale, wanted, tabs)
-    _launch("encode94_select", "dcs_encode94_select", ci.device, *args)
-    return packed
+    with span("dcs.kernel.encode94_select"):
+        args, packed, _scratch = _select_args(ci, out15, out14, silent, nf,
+                                              keep, hdr_scale, wanted, tabs)
+        _launch("encode94_select", "dcs_encode94_select", ci.device, *args)
+        return packed
 
 
 def encode94_select_parts(ci, out15, out14, silent, nf, keep, hdr_scale,

@@ -1,17 +1,15 @@
 """Profiling helpers of the PyTorch + CUDA port.
 
-Counterpart of ``dcsexplorer_tpu/utils/profiling.py``:
-- ``StageTimer``: named wall-clock stage accounting with a report table
-  (host code, copied as it is);
+- ``span``: the port's one way to open a host span: a
+  ``torch.profiler.record_function`` range while a profiler runs, a shared
+  null context otherwise;
 - ``device_trace``: a context manager around ``torch.profiler.profile``
   (CPU activity, and CUDA activity where a card is present) that writes a
   Chrome trace into ``log_dir``;
-- ``force_result``: forces the work behind a value by fetching a device
-  checksum of its first tensor, and times that;
 - ``trace_summary``: reads such a trace: the kernels with the most device
   time, the device's busy time (the union of kernel and copy intervals)
   and idle share of the traced window, and the longest idle gaps with the
-  host span (a ``record_function`` range) that covers each.
+  host span that covers each.
 
 Nothing here touches CUDA when the module is imported.
 """
@@ -24,27 +22,23 @@ from collections import defaultdict
 
 import torch
 
+_NO_SPAN = contextlib.nullcontext()
 
-class StageTimer:
-    def __init__(self):
-        self.totals = defaultdict(float)
-        self.counts = defaultdict(int)
 
-    @contextlib.contextmanager
-    def stage(self, name):
-        t0 = time.perf_counter()
-        try:
-            yield
-        finally:
-            self.totals[name] += time.perf_counter() - t0
-            self.counts[name] += 1
+def span(name):
+    """A host span named ``name`` around a ``with`` block.
 
-    def report(self):
-        lines = ["stage                          total_ms   calls"]
-        for name in sorted(self.totals, key=self.totals.get, reverse=True):
-            lines.append(f"{name:<30} {self.totals[name]*1000:9.1f} "
-                         f"{self.counts[name]:7d}")
-        return "\n".join(lines)
+    With no profiler running it is one shared ``nullcontext`` and calls
+    nothing in ``torch.ops.profiler``: the cost is one read of the
+    profiler's flag, where a ``record_function`` enters and leaves the
+    profiler's ops whether or not one runs.  Under
+    ``torch.profiler`` it is a ``record_function`` range, so the span lands
+    in the profiler's Chrome trace beside the card's kernels, on the same
+    clock.  A span's parent is the innermost span open around it on its
+    thread.  The port names its spans ``dcs.<layer>[.<stage>]``."""
+    if not torch.autograd.profiler._is_profiler_enabled:
+        return _NO_SPAN
+    return torch.profiler.record_function(name)
 
 
 @contextlib.contextmanager
@@ -68,27 +62,6 @@ def device_trace(log_dir="build/torch_trace"):
     prof.trace_file = os.path.join(
         log_dir, f"trace_{os.getpid()}_{time.time_ns()}.json")
     prof.export_chrome_trace(prof.trace_file)
-
-
-def force_result(value):
-    """Force the work behind ``value`` (a tensor, or a list, tuple or dict
-    holding tensors): fetch the checksum ``(x.int() & 0xFF).sum()`` of its
-    first tensor.  Returns (value, seconds)."""
-    t0 = time.perf_counter()
-    leaves = _tensor_leaves(value)
-    if leaves:
-        (leaves[0].int() & 0xFF).sum().item()
-    return value, time.perf_counter() - t0
-
-
-def _tensor_leaves(value):
-    if isinstance(value, torch.Tensor):
-        return [value]
-    if isinstance(value, dict):
-        value = list(value.values())
-    if isinstance(value, (list, tuple)):
-        return [t for v in value for t in _tensor_leaves(v)]
-    return []
 
 
 # the Chrome trace's categories of device work

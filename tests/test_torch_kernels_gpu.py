@@ -41,7 +41,9 @@ Fmax from 16 to 528 (two rounds of the scan), B 1 and 64, decision bytes
 past 15, and two calls in a row on scratch memory left dirty; the cold
 sweeps (chunked uploads from pinned buffers on a copy stream, one
 ColdDevice over repeated calls) and catalog_pipeline against the CPU,
-a torch.profiler trace of the flat sweep that holds its kernels, the
+a torch.profiler trace of the flat sweep that holds its kernels, a
+trace of a flat sweep and a served batch in which each kernel launches
+inside its wrapper's dcs.kernel.* span, the
 sharded paths over four side streams of one card (["cuda:0"] * 4, inputs
 made on the current stream just before the call): the flat sweep, the
 1994+ and 1993 sessions and the padded model's 2-D sweep against one
@@ -58,6 +60,7 @@ the real catalogs and the full-width session6 and session93a batches.
 """
 
 import glob
+import json
 import os
 
 import numpy as np
@@ -1536,6 +1539,60 @@ def test_device_trace_holds_the_kernels(dev, tmp_path):
     assert 0 < s["busy_ms"] <= s["window_ms"]
     assert 0 <= s["idle_share"] < 1
 
+
+
+def _launching_spans(trace_file):
+    """{kernel event name: {the innermost host span around its launch}} of
+    a Chrome trace: a kernel finds its launch call by correlation id, and
+    the launch the spans open around it on its own thread."""
+    with open(trace_file) as f:
+        events = [e for e in json.load(f)["traceEvents"]
+                  if e.get("ph") == "X" and "dur" in e]
+    spans = [(e["ts"], e["ts"] + e["dur"], e["name"], e["pid"], e["tid"])
+             for e in events if e.get("cat") == "user_annotation"]
+    calls = {e["args"]["correlation"]: e for e in events
+             if e.get("cat") in ("cuda_runtime", "cuda_driver")
+             and "correlation" in e.get("args", {})}
+    out = {}
+    for e in events:
+        call = calls.get(e.get("args", {}).get("correlation"))
+        if e.get("cat") != "kernel" or call is None:
+            continue
+        inside = [s for s in spans if s[3] == call["pid"]
+                  and s[4] == call["tid"] and s[0] <= call["ts"] <= s[1]]
+        name = max(inside)[2] if inside else None
+        out.setdefault(e["name"], set()).add(name)
+    return out
+
+
+def test_kernels_launch_inside_their_kernel_spans(dev, tmp_path):
+    # a flat sweep and a served batch under the profiler: each hand-written
+    # kernel's launch has its wrapper's dcs.kernel.* span innermost
+    args = fs.packed_to_device(fs.FlatSweep(_assets(COLD94)).pack()
+                               .compact_host_arrays(), dev)
+    pipe = fs.FlatPipeline(dev)
+    rs, _ = zipload.load_zip_file(SESSION6_ZIP)
+    S, T = 5, 150
+    events = [{(b * 7 + t * 3) % 40: [0x00, t] for t in range(1, 7)}
+              | {0: [0x55, 0xAA, 0x40 + b, (0x40 + b) ^ 0xFF]}
+              for b in range(S)]
+    with romplay.SessionServer(rs, S, T, n_ch=6) as srv:
+        wire, E = srv.prepare(events)
+        wire = torch.from_numpy(wire).to(dev)
+        pipe(**args)
+        srv.decode_wire(wire, E)
+        torch.cuda.synchronize()
+        with profiling.device_trace(str(tmp_path)) as prof:
+            pipe(**args)
+            srv.decode_wire(wire, E)
+            torch.cuda.synchronize()
+    got = _launching_spans(prof.trace_file)
+    for kernel in ("decode94_fb", "transform94_pcm", "segments94",
+                   "session_mix94"):
+        names = [k for k in got if f"{kernel}_kernel" in k]
+        assert names, (kernel, sorted(got))
+        assert set().union(*(got[k] for k in names)) == \
+            {f"dcs.kernel.{kernel}"}, (kernel, got)
 
 # -- the sharded paths (parallel/sweep.py) on one card -------------------------
 

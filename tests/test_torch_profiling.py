@@ -1,10 +1,14 @@
 """The port's profiling module (dcsexplorer_tpu_torch/utils/profiling.py) on
-the CPU: StageTimer's report against the JAX package's, a device_trace
-written under a given directory, force_result's checksum fetch,
-trace_summary's arithmetic on a synthetic Chrome trace, and that the
-module and the cold sweeps import with no card and without touching
-CUDA."""
+the CPU: ``span``'s shared null context with no profiler running, the
+program's spans in a CPU trace (``dcs.flat94``; ``dcs.session`` and its
+three children), one ``dcs.kernel.*`` span around each counted launch of
+``ops/kernels.py``, no ``record_function`` outside the helper, a
+device_trace written under a given directory, trace_summary's arithmetic
+on a synthetic Chrome trace, and that the module and the cold sweeps
+import with no card and without touching CUDA."""
 
+import ast
+import glob
 import json
 import os
 import subprocess
@@ -12,40 +16,156 @@ import sys
 
 import pytest
 import torch
-from torch.profiler import record_function
 
-from dcsexplorer_tpu.utils import profiling as jprof
+from dcsexplorer_tpu_torch.models import flatsweep as fs
+from dcsexplorer_tpu_torch.models import romplay
+from dcsexplorer_tpu_torch.ops import kernels
+from dcsexplorer_tpu_torch.rom import zipload
 from dcsexplorer_tpu_torch.utils import profiling as tprof
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+PORT = os.path.join(REPO, "dcsexplorer_tpu_torch")
+SESSION93A_ZIP = os.path.join(PORT, "data", "session93a.zip")
 
 
-def test_stage_timer_report_matches_jax():
-    totals = {"pack": 0.0123, "upload": 0.5, "fetch": 0.000401}
-    counts = {"pack": 3, "upload": 1, "fetch": 12}
-    timers = [jprof.StageTimer(), tprof.StageTimer()]
-    for t in timers:
-        t.totals.update(totals)
-        t.counts.update(counts)
-    assert timers[1].report() == timers[0].report()
-    assert timers[1].report().splitlines()[1].startswith("upload")
+def _user_spans(prof, tmp_path):
+    """[(start, end, name)] of the user_annotation events of a finished
+    profiler's Chrome trace, by start."""
+    path = str(tmp_path / "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+        events = json.load(f)["traceEvents"]
+    return sorted((e["ts"], e["ts"] + e["dur"], e["name"]) for e in events
+                  if e.get("cat") == "user_annotation")
 
 
-def test_stage_timer_records_stages():
-    t = tprof.StageTimer()
-    for _ in range(2):
-        with t.stage("a"):
+def test_span_with_no_profiler_is_one_shared_null_context(monkeypatch):
+    calls = []
+    enter = torch.ops.profiler._record_function_enter_new
+
+    def spy(*args):
+        calls.append(args[0])
+        return enter(*args)
+
+    monkeypatch.setattr(torch.ops.profiler, "_record_function_enter_new", spy)
+    a, b = tprof.span("dcs.a"), tprof.span("dcs.b")
+    assert a is b
+    with a:
+        with b:
             pass
-    with pytest.raises(KeyError):
-        with t.stage("b"):
-            raise KeyError("b")
-    assert t.counts == {"a": 2, "b": 1}
-    assert all(v >= 0 for v in t.totals.values())
+    assert calls == []
+    # under a profiler the same call opens a record_function range
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]):
+        with tprof.span("dcs.c"):
+            pass
+    assert calls == ["dcs.c"]
+    assert tprof.span("dcs.d") is a
+
+
+def test_flat_pipeline_opens_its_span(tmp_path):
+    with open(os.path.join(REPO, "assets", "streams", "tone_low.dcs94"),
+              "rb") as f:
+        stream = f.read()
+    args = fs.packed_to_device(fs.FlatSweep([stream]).pack()
+                               .compact_host_arrays(), "cpu")
+    pipe = fs.FlatPipeline("cpu")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        pcm = pipe(**args)
+    assert pcm.shape[1] == 240
+    assert [n for _, _, n in _user_spans(prof, tmp_path)] == ["dcs.flat94"]
+
+
+def test_decode_wire_opens_the_session_spans(tmp_path):
+    rs, _ = zipload.load_zip_file(SESSION93A_ZIP)
+    assert rs.check() == 1                  # sets its os_version
+    S, T = 2, 12
+    events = [{1: [0x00, 1 + b], 0: [0x55, 0xAA, 0x60, 0x9F]}
+              for b in range(S)]
+    with romplay.SessionServer(rs, S, T, n_ch=6, device="cpu") as srv:
+        wire, E = srv.prepare(events)
+        want = srv.decode_wire(torch.from_numpy(wire), E)
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            got = srv.decode_wire(torch.from_numpy(wire), E)
+    assert torch.equal(got, want) and got.shape == (S, T * 240)
+    spans = _user_spans(prof, tmp_path)
+    assert [n for _, _, n in spans] == [
+        "dcs.session", "dcs.session.expand", "dcs.session.decode",
+        "dcs.session.reduce"]
+    (a, b, _), children = spans[0], spans[1:]
+    for (c0, c1, _), (n0, _, _) in zip(children, children[1:] + [(b, 0, 0)]):
+        assert a <= c0 <= c1 <= n0 <= b
+
+
+def _launch_spans():
+    """{LAUNCHES key: [span name of each wrapper that launches it]} read
+    from ops/kernels.py: each function that calls ``_launch`` is, after its
+    docstring (and the choice of its key), one ``with span(...)`` block
+    around the rest of its body."""
+    with open(kernels.__file__) as f:
+        tree = ast.parse(f.read())
+    out = {}
+    for fn in tree.body:
+        if not isinstance(fn, ast.FunctionDef) or not any(
+                isinstance(n, ast.Call) and getattr(n.func, "id", "")
+                == "_launch" for n in ast.walk(fn)):
+            continue
+        body = fn.body[1:]                  # after the docstring
+        keys = None
+        if isinstance(body[0], ast.Assign):     # kernel = "x" if ... else
+            assert body[0].targets[0].id == "kernel", fn.name
+            keys = [n.value for n in ast.walk(body[0].value)
+                    if isinstance(n, ast.Constant) and isinstance(n.value,
+                                                                  str)]
+            body = body[1:]
+        assert len(body) == 1 and isinstance(body[0], ast.With), fn.name
+        call = body[0].items[0].context_expr
+        assert call.func.id == "span", fn.name
+        launch = [n for n in ast.walk(body[0]) if isinstance(n, ast.Call)
+                  and getattr(n.func, "id", "") == "_launch"]
+        assert len(launch) == 1, fn.name
+        arg = launch[0].args[0]
+        if keys is None:
+            keys = [arg.value]
+            names = [call.args[0].value]
+        else:
+            assert arg.id == "kernel", fn.name
+            fmt = call.args[0]
+            assert [type(v) for v in fmt.values] == [ast.Constant,
+                                                     ast.FormattedValue]
+            assert fmt.values[1].value.id == "kernel", fn.name
+            names = [fmt.values[0].value + k for k in keys]
+        for k, name in zip(keys, names):
+            out.setdefault(k, []).append(name)
+    return out
+
+
+@pytest.mark.parametrize("key", sorted(kernels.LAUNCHES))
+def test_each_counted_launch_has_its_kernel_span(key):
+    spans = _launch_spans()
+    assert set(spans) == set(kernels.LAUNCHES)
+    assert spans[key] == [f"dcs.kernel.{key}"]
+
+
+def test_no_record_function_outside_the_span_helper():
+    helper = os.path.join(PORT, "utils", "profiling.py")
+    found = []
+    for path in glob.glob(os.path.join(PORT, "**", "*.py"), recursive=True):
+        if path == helper:
+            continue
+        with open(path) as f:
+            if "record_function" in f.read():
+                found.append(os.path.relpath(path, REPO))
+    assert found == []
+    assert not hasattr(tprof, "StageTimer")
+    assert not hasattr(tprof, "force_result")
 
 
 def test_device_trace_writes_a_trace_on_the_cpu(tmp_path):
     with tprof.device_trace(str(tmp_path / "tr")) as prof:
-        with record_function("pack"):
+        with tprof.span("pack"):
             x = torch.arange(1000).sum()
     path = prof.trace_file
     assert os.path.dirname(path) == str(tmp_path / "tr")
@@ -57,25 +177,6 @@ def test_device_trace_writes_a_trace_on_the_cpu(tmp_path):
     # a trace with no kernel event is no trace of the device
     with pytest.raises(ValueError, match="no CUDA kernel event"):
         tprof.trace_summary(path)
-
-
-def test_force_result_fetches_a_checksum(monkeypatch):
-    fetched = []
-    item = torch.Tensor.item
-
-    def spy(self):
-        fetched.append(item(self))
-        return fetched[-1]
-
-    monkeypatch.setattr(torch.Tensor, "item", spy)
-    x = torch.tensor([[0x1FF, -1], [3, 0x100]], dtype=torch.int32)
-    value = {"pcm": x, "n": 4}
-    out, seconds = tprof.force_result(value)
-    assert out is value and seconds >= 0
-    # (x.int() & 0xFF).sum() of the first tensor, fetched once
-    assert fetched == [0xFF + 0xFF + 3 + 0]
-    assert tprof.force_result([3, "a"])[0] == [3, "a"]
-    assert fetched == [0x201]
 
 
 def _x(cat, name, ts, dur):
