@@ -85,7 +85,8 @@ non-zero):
      on both sweeps, on the session batch (C = 6, both kinds) and on the
      batch with a random carried state (decode93_pcm_carry), each beside
      the sum of the pair it replaced, decode93_fb + transform93_pcm (on no
-     path), held and timed at the same shapes; the stage spans of the
+     path), held and timed at the same shapes; decode93_pcm on the batch's
+     first 1, 2 and 4 voices, and its time a voice; the stage spans of the
      dec93b sweep and of one session93a batch (segments94's kernel time
      beside its span); the batch's device time,
      serve() x realtime over 8 batches with every gap and latency as in
@@ -1301,6 +1302,18 @@ def main():
     check_decode93_pcm(bcols, rows93, mixes93, vols93, sid, shape=shape)
     against_pair(shape, f"decode93_pcm ({shape})", f"decode93_fb ({shape})",
                  f"transform93_pcm ({shape})")
+    # the voice loop's slope: the batch cut to its first c voices
+    by_voices = {C: times[f"decode93_pcm ({shape})"]}
+    for c in (1, 2, 4):
+        cut = f"session93a batch, C = {c}"
+        check_decode93_pcm(bcols, rows93[:, :c].contiguous(),
+                           mixes93[:, :c].contiguous(), vols93, sid,
+                           shape=cut)
+        by_voices[c] = times[f"decode93_pcm ({cut})"]
+    ns = {c: ms * 1e6 / rows93.shape[0] for c, ms in by_voices.items()}
+    print("phase 12 decode93_pcm by voices (the batch's first C; ns a "
+          "frame): " + ", ".join(f"C = {c} {ns[c]:.3f}" for c in sorted(ns))
+          + f"; a voice, C = 1 to {C}: {(ns[C] - ns[1]) / (C - 1):.3f}")
     check_decode93_pcm(bcols, rows93, mixes93, vols93, sid, ov93)
     against_pair("session93a batch with a random carried state",
                  "decode93_pcm_carry", f"decode93_fb ({shape})",

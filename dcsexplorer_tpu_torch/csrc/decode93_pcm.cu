@@ -28,8 +28,12 @@
 // instructions (sign extension, the MAC's rounding quirk: ~20 for a
 // butterfly), and nothing here maps onto the tensor cores, so the design
 // cuts instructions and keeps 32 warps an SM (64 registers, no spills,
-// 46 KB of shared memory a block) to hide the load latency of the voice
-// headers and the bitstream.
+// 46 KB of shared memory a block).  Measured at six voices (PERF.md), the
+// voice loop is bound by the instructions it runs and fetches, not by the
+// latency of its loads: staging each voice's bitstream a voice ahead in
+// shared memory (through registers or by cp.async) made it slower, while
+// keeping the rare path of each field load (words past the pool's end)
+// out of the common path's code made it a fifth faster.
 //
 // Design:
 // - One warp per frame, 8 warps a block, a block per tile of kTile = 63
@@ -37,14 +41,34 @@
 //   takes 8 frames.  The frame buffer is 256 words a warp in shared
 //   memory: the transform reads words 0..255 only, so targets at 256 and
 //   above are dropped (a test on the CPU holds that premise).  It is the
-//   first of the warp's two exchange buffers; the second holds the 93
-//   body's band list during the decode.
+//   first of the warp's two exchange buffers; the second (xb) holds a 93
+//   voice's partial and its band list during the decode.
 // - Voice headers: lanes 0..C-1 hold the frame's rows, mixes, row kinds,
 //   frame words and row streams, loaded during the previous frame's
 //   transform; each voice's band columns (kw, bit_rel, prv, code, its
-//   stream's band table) load while the voice before it runs.  The bodies
-//   run in channel order (the 93 fix-up and the Type-1 words do not
-//   commute).
+//   stream's band table) load while the voice before it runs.
+// - Each voice is decoded as an independent body into its own partial, and
+//   the partials fold into the frame buffer in channel order (one voice a
+//   frame in the flat sweep).  This rests on a premise that a CPU test holds
+//   on random and edge words (tests/test_torch_decode93_pcm.py): words are
+//   mod 2^16, the 93 body's write ((sx16(w) << 16 | lo) + X) >> 16 is w +
+//   ((lo + X) >> 16), and the Type-1 body's round((w << 16) + prod) is w +
+//   ((prod + $8000) >> 16) with bit 0 cleared where prod's low half is
+//   $8000.  So a voice's deltas d (and its tie bits) read no word of the
+//   frame: each voice's body computes its partial, and the partials fold
+//   into the words in channel order, which keeps the two rules that depend
+//   on order: the tie rule clears bit 0 of the running word, and after a 93
+//   voice word 0 takes sat16(sat16(sx16(w1 + d1) - sx16(w1)) + sx16(w0))
+//   while word 1 keeps its value (the first-sample fix-up, reference
+//   :2608-2611).  Lane l owns words 4l..4l+3 and 128+4l..128+4l+3 of the
+//   frame buffer during the decode and alone reads and writes them, so the
+//   folds need no fence.  A 93 voice scatters its deltas as 256 halfwords
+//   into xb (words 0..127, zero but at the voice's targets; its band list
+//   after them); after one __syncwarp() each lane adds its halfwords to its
+//   words (lane 0: the fix-up in place of word 1's delta) and clears them
+//   for the next 93 voice.  A Type-1 voice's lane l takes inputs 2l, 2l+1,
+//   64+2l and 65+2l (input j writes words 2j and 2j+1): its words are the
+//   lane's own, so its partial stays in registers and folds at once.
 // - 93 body on all 32 lanes: each lane takes a run of one band's samples,
 //   8 of them (lane l: band l & 15) or, when at most 8 bands carry samples
 //   (nine frames in ten of the real streams), 4 of them (lane l: the
@@ -54,12 +78,10 @@
 //   takes the chain state entering them from the band's other lanes by a
 //   shuffle scan.  Ramps and repeats keep their closed forms.  The output
 //   layout is a 16-lane prefix sum of the band table's advances.  A voice's
-//   targets are distinct, so the accumulates need no order; lane 0 applies
-//   the first-sample fix-up after a __syncwarp().
-// - Type-1 body: input j of the frame's 127 goes to lane j mod 32; lane
-//   b < 18 holds band b's width, scale and bit offset and hands them over
-//   by shuffles; the pair table sits in shared memory as 1,024 words of
-//   two entries, one load an input.
+//   targets are distinct, so the accumulates need no order.
+// - Type-1 body: lane b < 18 holds band b's width, scale and bit offset
+//   and hands them over by shuffles; the pair table sits in shared memory
+//   as 1,024 words of two entries, one load an input.
 // - Transform in registers: 8 complex values a lane, held mod 2^16 without
 //   reduction (only multiplied values are sign-extended).  Plane index e =
 //   b7..b0; the stages run on bits 6..0 in order and never mix bit 7.  Step
@@ -246,12 +268,13 @@ __device__ __forceinline__ Voice load_voice(const Cols &c, const Ctl &t,
 
 // the samples 8h' .. of one 93 band that a lane decodes, K of them from
 // K * h (h = the lane's segment of the band; a band's 16 / K segments sit
-// in lanes 32 * K / 16 apart), into the warp's frame buffer.  kw (kind << 5
-// | width), sc, n, inc, ostart (its first sample's word), bit_rel and prv
-// are the band's; kw 0 for a lane without a band
+// in lanes 32 * K / 16 apart), as deltas into the voice's partial (256
+// halfwords at part).  kw (kind << 5 | width), sc, n, inc, ostart (its
+// first sample's word), bit_rel and prv are the band's; kw 0 for a lane
+// without a band
 template <int K>
-__device__ __forceinline__ void cells93(const Cols &c, int *fb, int fw,
-                                        int m, int kw, int sc, int n,
+__device__ __forceinline__ void cells93(const Cols &c, unsigned short *part,
+                                        int fw, int m, int kw, int sc, int n,
                                         int inc, int ostart, int bit_rel,
                                         int prv, int h) {
     constexpr int G = 16 / K;                  // segments (lanes) a band
@@ -271,13 +294,22 @@ __device__ __forceinline__ void cells93(const Cols &c, int *fb, int fw,
     const bool fast = (unsigned)(fw + ((rel0 + (K - 1) * w) >> 5) + 1) <
                       (unsigned)c.n_words;
     uint32_t samp[K];
+    // the common case's loads in one block, the rare one (words past the
+    // pool's whole words) out of its way
+    if (__builtin_expect(fast, 1)) {
 #pragma unroll
-    for (int k = 0; k < K; ++k) {
-        uint32_t raw = 0u;
-        if (data && k < kn)
-            raw = fast ? field<true>(c, fw, rel0 + k * w, w1)
-                       : field(c, fw, rel0 + k * w, w1);
-        samp[k] = raw - ((raw >> (w1 - 1)) << w1);
+        for (int k = 0; k < K; ++k) {
+            const uint32_t raw =
+                data && k < kn ? field<true>(c, fw, rel0 + k * w, w1) : 0u;
+            samp[k] = raw - ((raw >> (w1 - 1)) << w1);
+        }
+    } else {
+#pragma unroll
+        for (int k = 0; k < K; ++k) {
+            const uint32_t raw =
+                data && k < kn ? field(c, fw, rel0 + k * w, w1) : 0u;
+            samp[k] = raw - ((raw >> (w1 - 1)) << w1);
+        }
     }
     // the Sigma and Sigma-Sigma sums entering sample i0: an exclusive scan
     // over the band's segments of (sum of samples, sum of running sums),
@@ -311,54 +343,42 @@ __device__ __forceinline__ void cells93(const Cols &c, int *fb, int fw,
     const int pl = sx16(l0);
     const int m_low = (pl * m) & dcs::kM16;
 
-    // the words this lane accumulates into are distinct within a voice:
-    // each group of 4 is read before it is written
+    // a voice's targets are distinct.  The delta is (lo + X) >> 16 for the
+    // write ((old << 16 | lo) + X) >> 16
     const int kw_live = kind != K_NONE ? kn : 0;
     a1 = a2 = 0;
 #pragma unroll
-    for (int g = 0; g < K; g += 4) {
-        int old[4];
-#pragma unroll
-        for (int k = g; k < g + 4; ++k) {
-            const int tgt = t0 + k * inc;
-            old[k - g] = k < kw_live && (unsigned)tgt < (unsigned)kFbWords
-                             ? fb[tgt]
-                             : 0;
+    for (int k = 0; k < K; ++k) {
+        const int i = i0 + k, tgt = t0 + k * inc;
+        a1 += samp[k];
+        a2 += a1;
+        if (k >= kw_live || (unsigned)tgt >= (unsigned)kFbWords) continue;
+        int lo, x;                      // the low word and the mix product
+        if (kind == K_REPEAT) {
+            lo = (l0 + i * m_low) & dcs::kM16;
+            x = pl * m;
+        } else {
+            const uint32_t val =
+                kind == K_DATA0   ? samp[k]
+                : kind == K_DATA1 ? in1 + a1
+                : kind == K_DATA2 ? in2 + (uint32_t)(k + 1) * dl2 + a2
+                                  : p_in + (uint32_t)(i + 1) * p_dl;
+            lo = (sx16((int)val) * sc) & dcs::kM16;
+            x = sx16(lo) * m;
         }
-#pragma unroll
-        for (int k = g; k < g + 4; ++k) {
-            const int i = i0 + k, tgt = t0 + k * inc;
-            a1 += samp[k];
-            a2 += a1;
-            if (k >= kw_live || (unsigned)tgt >= (unsigned)kFbWords) continue;
-            uint32_t prod;
-            if (kind == K_REPEAT) {
-                prod = ((uint32_t)sx16(old[k - g]) << 16) |
-                       ((uint32_t)(l0 + i * m_low) & 0xFFFFu);
-                prod += (uint32_t)(pl * m);
-            } else {
-                const uint32_t val =
-                    kind == K_DATA0   ? samp[k]
-                    : kind == K_DATA1 ? in1 + a1
-                    : kind == K_DATA2 ? in2 + (uint32_t)(k + 1) * dl2 + a2
-                                      : p_in + (uint32_t)(i + 1) * p_dl;
-                const int scaled = (sx16((int)val) * sc) & dcs::kM16;
-                prod = ((uint32_t)sx16(old[k - g]) << 16) | (uint32_t)scaled;
-                prod += (uint32_t)(sx16(scaled) * m);
-            }
-            fb[tgt] = (int)(prod >> 16);
-        }
+        part[tgt] = (unsigned short)((lo + x) >> 16);
     }
 }
 
-// one voice of the 93 band decode into the warp's frame buffer.  With at
-// most 8 bands that carry samples (most frames of the real streams), 4
-// lanes take each of them (lane l: the (l & 7)-th such band, samples
-// 4h..4h+3, h = l >> 3); otherwise lane l takes band l & 15, samples
-// 8h..8h+7, h = l >> 4.  scratch: 8 words of the warp's shared memory
-__device__ __forceinline__ void voice93(const Cols &c, int *fb, int *scratch,
-                                        const Voice &v, int m, int fw,
-                                        int lane) {
+// one voice of the 93 band decode into its partial (256 halfwords at part;
+// fold93 adds it and applies the fix-up).  With at most 8 bands that carry
+// samples (most frames of the real streams), 4 lanes take each of them
+// (lane l: the (l & 7)-th such band, samples 4h..4h+3, h = l >> 3);
+// otherwise lane l takes band l & 15, samples 8h..8h+7, h = l >> 4.
+// scratch: 8 words of the warp's shared memory
+__device__ __forceinline__ void voice93(const Cols &c, unsigned short *part,
+                                        int *scratch, const Voice &v, int m,
+                                        int fw, int lane) {
     // band lane & 15's layout (lanes 16..31 repeat lanes 0..15)
     const int kind = v.kw >> 5, w = v.kw & 31;
     if (kind > K_RAMP || w > kMaxWidth93) __trap();
@@ -376,7 +396,6 @@ __device__ __forceinline__ void voice93(const Cols &c, int *fb, int *scratch,
     const unsigned live = __ballot_sync(kFull, lane < 16 && kind != K_NONE);
     const int n_live = __popc(live);
 
-    const int outbuf1 = fb[1];
     if (n_live <= 8) {
         // the live bands in order: band b is the popc(live below b)-th
         if (lane < 16 && (live >> lane & 1))
@@ -391,85 +410,130 @@ __device__ __forceinline__ void voice93(const Cols &c, int *fb, int *scratch,
         const int bstart = __shfl_sync(kFull, ostart, b);
         const int brel = __shfl_sync(kFull, v.bit_rel, b);
         const int bprv = __shfl_sync(kFull, v.prv, b);
-        cells93<4>(c, fb, fw, m, on ? kw_sc >> 16 : 0, kw_sc & dcs::kM16, bn,
-                   binc, bstart, brel, bprv, lane >> 3);
+        cells93<4>(c, part, fw, m, on ? kw_sc >> 16 : 0, kw_sc & dcs::kM16,
+                   bn, binc, bstart, brel, bprv, lane >> 3);
     } else {
         __syncwarp();
-        cells93<8>(c, fb, fw, m, v.kw, sc, n, inc, ostart, v.bit_rel, v.prv,
-                   lane >> 4);
-    }
-    __syncwarp();
-    // first-sample delta fix-up (reference :2608-2611)
-    if (lane == 0) {
-        const int delta = dcs::sat16(sx16(fb[1]) - sx16(outbuf1));
-        fb[0] = dcs::sat16(sx16(delta) + sx16(fb[0]));
-        fb[1] = outbuf1;
+        cells93<8>(c, part, fw, m, v.kw, sc, n, inc, ostart, v.bit_rel,
+                   v.prv, lane >> 4);
     }
     __syncwarp();
 }
 
-// one voice of the OS93a Type-1 decode into the warp's frame buffer:
-// lane l takes inputs l + 32t (t = 0..3) of the frame's 127
+// ----------------------------------------------------------------- folds
+// Lane l alone reads and writes words 4l..4l+3 and 128+4l..128+4l+3 of the
+// frame buffer during the decode (each in the low 16 bits of its int: the
+// bits above are never read), so the voices need no fence between them.  A
+// voice's body writes its partial, and the partial folds into those words
+// in channel order.
+
+// lane l's words of the frame buffer, and back
+__device__ __forceinline__ void own_load(const int *fb, int lane,
+                                         int (&w)[8]) {
+    const int4 a = reinterpret_cast<const int4 *>(fb)[lane];
+    const int4 b = reinterpret_cast<const int4 *>(fb)[32 + lane];
+    w[0] = a.x, w[1] = a.y, w[2] = a.z, w[3] = a.w;
+    w[4] = b.x, w[5] = b.y, w[6] = b.z, w[7] = b.w;
+}
+
+__device__ __forceinline__ void own_store(int *fb, int lane,
+                                          const int (&w)[8]) {
+    reinterpret_cast<int4 *>(fb)[lane] = make_int4(w[0], w[1], w[2], w[3]);
+    reinterpret_cast<int4 *>(fb)[32 + lane] =
+        make_int4(w[4], w[5], w[6], w[7]);
+}
+
+// fold a 93 voice's partial (256 halfwords at part: zero where the voice
+// wrote nothing, its targets are >= 1) into the lane's words, and clear the
+// lane's halfwords of it for the next voice.  Word 1 keeps its value; lane 0
+// applies the first-sample fix-up to word 0 (reference :2608-2611):
+// w0 <- sat16(sat16(sx16(w1 + d1) - sx16(w1)) + sx16(w0))
+__device__ __forceinline__ void fold93(int *fb, int *part, int lane) {
+    int w[8];
+    own_load(fb, lane, w);
+    uint2 *p2 = reinterpret_cast<uint2 *>(part);
+    const uint2 a = p2[lane], b = p2[32 + lane];
+    p2[lane] = p2[32 + lane] = make_uint2(0u, 0u);
+    const int d1 = (int)(a.x >> 16);
+    const int delta = dcs::sat16(sx16(w[1] + d1) - sx16(w[1]));
+    const int fix = dcs::sat16(sx16(delta) + sx16(w[0]));
+    w[0] = lane == 0 ? fix : w[0] + (int)a.x;
+    w[1] += lane == 0 ? 0 : d1;
+    w[2] += (int)a.y;
+    w[3] += (int)(a.y >> 16);
+    w[4] += (int)b.x;
+    w[5] += (int)(b.x >> 16);
+    w[6] += (int)b.y;
+    w[7] += (int)(b.y >> 16);
+    own_store(fb, lane, w);
+}
+
+// one voice of the OS93a Type-1 decode folded straight into the lane's
+// words: lane l takes inputs 2l, 2l+1, 64+2l and 65+2l of the frame's 127
+// (input j writes words 2j and 2j+1), so its partial never leaves the
+// lane.  The write round((old << 16) + prod) with the MAC's tie rule is
+// old + ((prod + $8000) >> 16) with bit 0 cleared where prod's low half is
+// $8000
 __device__ __forceinline__ void voice93a(const Cols &c, const Tables &tb,
                                          int *fb, const Voice &v, int m,
                                          int fw, int lane) {
     // lane b < 18 holds band b
-    int w = 0, eff = 0;
+    int wb = 0, eff = 0;
     if (lane < kBands93a) {
-        w = v.kw;
-        if (w > kMaxWidth93a) __trap();
+        wb = v.kw;
+        if (wb > kMaxWidth93a) __trap();
         const int code = v.code;
         const uint32_t scale32 =
             code == 0xFF ? 0u
                          : (uint32_t)tb.mant[code & 3] << min(code >> 2, 14);
         eff = sx16((int)(((scale32 >> 16) * (uint32_t)m) >> 15));
     }
+    const uint32_t *map2 = reinterpret_cast<const uint32_t *>(tb.in_map);
+    const uint32_t jm2[2] = {map2[lane], map2[32 + lane]};
     uint32_t raw[4];
     int bw[4], beff[4], rel[4];
     int top = 0;                        // the lane's last field's offset
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
-        const int jm = tb.in_map[lane + 32 * t];     // $FFFF past input 126
+        const int jm = (int)(t & 1 ? jm2[t >> 1] >> 16
+                                   : jm2[t >> 1] & 0xFFFFu);  // $FFFF: none
         const int b = jm & 0xFF;
-        bw[t] = __shfl_sync(kFull, w, b & 31);
+        bw[t] = __shfl_sync(kFull, wb, b & 31);
         beff[t] = __shfl_sync(kFull, eff, b & 31);
         rel[t] = __shfl_sync(kFull, v.bit_rel, b & 31) + (jm >> 8) * bw[t];
         if (b >= kBands93a) bw[t] = 0;
         if (bw[t] != 0) top = max(top, rel[t]);
     }
-    // the fields' words checked against the pool's end once, unless they
-    // cross it
+    // the fields' words checked against the pool's end once; the common
+    // case's loads in one block, the rare one out of its way
     const bool fast = (unsigned)(fw + (top >> 5) + 1) < (unsigned)c.n_words;
+    if (__builtin_expect(fast, 1)) {
 #pragma unroll
-    for (int t = 0; t < 4; ++t) {
-        raw[t] = 0u;
-        if (bw[t] != 0)
-            raw[t] = fast ? field<true>(c, fw, rel[t], bw[t])
-                          : field(c, fw, rel[t], bw[t]);
+        for (int t = 0; t < 4; ++t)
+            raw[t] = bw[t] != 0 ? field<true>(c, fw, rel[t], bw[t]) : 0u;
+    } else {
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+            raw[t] = bw[t] != 0 ? field(c, fw, rel[t], bw[t]) : 0u;
     }
-    int2 old[4];
-    int2 *fb2 = reinterpret_cast<int2 *>(fb);
-#pragma unroll
-    for (int t = 0; t < 4; ++t)
-        old[t] = bw[t] != 0 ? fb2[lane + 32 * t] : make_int2(0, 0);
+    int w[8];
+    own_load(fb, lane, w);
 #pragma unroll
     for (int t = 0; t < 4; ++t) {
         if (bw[t] == 0) continue;
-        // the pair at (2 << w) + 2 * raw, one 32-bit word
         const uint32_t pv = tb.pair2[(1 << bw[t]) + raw[t]];
-        int out[2];
 #pragma unroll
         for (int k = 0; k < 2; ++k) {
+            // p8 = prod + $8000: a tie leaves its low half 0
             const int pk = k ? (int)pv >> 16 : sx16((int)pv);
-            const uint32_t prod = (uint32_t)pk * (uint32_t)(2 * beff[t]);
-            uint32_t res = ((uint32_t)sx16(k ? old[t].y : old[t].x) << 16) +
-                           prod + 0x8000u;
-            if ((prod & 0xFFFFu) == 0x8000u) res &= ~0x10000u;
-            out[k] = (int)(res >> 16);
+            const uint32_t p8 =
+                (uint32_t)pk * (uint32_t)(2 * beff[t]) + 0x8000u;
+            int &x = w[2 * t + k];
+            x += (int)(p8 >> 16);
+            if ((p8 & 0xFFFFu) == 0u) x &= ~1;
         }
-        fb2[lane + 32 * t] = make_int2(out[0], out[1]);
     }
-    __syncwarp();
+    own_store(fb, lane, w);
 }
 
 // ------------------------------------------------------------- transform
@@ -679,20 +743,26 @@ decode93_pcm_kernel(Cols c, const int *__restrict__ rows,
         const bool more = s + kWarps <= kTile && f + kWarps < n_frames;
 
         // decode: the voices in channel order, each one's columns loaded
-        // during the one before
+        // during the one before.  The lane's words of the frame buffer; in
+        // xb a 93 voice's partial (zero but where the voice writes: words
+        // 0..127) and its band list (128..135)
         reinterpret_cast<int4 *>(fb)[lane] = make_int4(0, 0, 0, 0);
-        reinterpret_cast<int4 *>(fb)[lane + 32] = make_int4(0, 0, 0, 0);
-        __syncwarp();
+        reinterpret_cast<int4 *>(fb)[32 + lane] = make_int4(0, 0, 0, 0);
+        reinterpret_cast<int4 *>(xb)[lane] = make_int4(0, 0, 0, 0);
         for (int v = 0; v < n_ch; ++v) {
             const Voice cur = nxt;
             if (v + 1 < n_ch) nxt = load_voice(c, ctl, v + 1, lane);
             const int m = __shfl_sync(kFull, ctl.m, v);
             const int fw = __shfl_sync(kFull, ctl.fw, v);
-            if (cur.kind == ROW_93)
-                voice93(c, fb, xb, cur, m, fw, lane);
-            else if (cur.kind == ROW_93A)
+            if (cur.kind == ROW_93) {
+                voice93(c, reinterpret_cast<unsigned short *>(xb), xb + 128,
+                        cur, m, fw, lane);
+                fold93(fb, xb, lane);
+            } else if (cur.kind == ROW_93A) {
                 voice93a(c, tb, fb, cur, m, fw, lane);
+            }
         }
+        __syncwarp();
         // the next frame's controls load during this frame's transform
         if (more)
             ctl = load_ctl(c, rows, mix, f + kWarps, n_ch, n_rows, lane);
@@ -830,15 +900,13 @@ extern "C" int dcs_decode93_pcm(
                  frame_word, sid, kind, kw, bit_rel, prv, code, band_tab,
                  n_streams};
     const int blocks = (n_frames + kTile - 1) / kTile;
-    if (overlap0 != nullptr)
-        decode93_pcm_kernel<true><<<blocks, kThreads, 0, stream>>>(
-            c, rows, mix, vol, fsid, pair, inputs, cos_tab, sin_tab, ovl_new,
-            ovl_old, overlap0, last_ov, n_groups, pcm, n_frames, n_ch,
-            n_rows);
-    else
-        decode93_pcm_kernel<false><<<blocks, kThreads, 0, stream>>>(
-            c, rows, mix, vol, fsid, pair, inputs, cos_tab, sin_tab, ovl_new,
-            ovl_old, nullptr, nullptr, 0, pcm, n_frames, n_ch, n_rows);
+    const bool carry = overlap0 != nullptr;
+    auto kernel = carry ? decode93_pcm_kernel<true>
+                        : decode93_pcm_kernel<false>;
+    kernel<<<blocks, kThreads, 0, stream>>>(
+        c, rows, mix, vol, fsid, pair, inputs, cos_tab, sin_tab, ovl_new,
+        ovl_old, overlap0, last_ov, carry ? n_groups : 0, pcm, n_frames,
+        n_ch, n_rows);
     return (int)cudaGetLastError();
 }
 

@@ -16,6 +16,13 @@ overlap_resolve93_flat or, with a carried state, overlap_resolve93 per run.
   (the JAX package decodes those widths wrong);
 - the premise of the kernel's 256-word frame buffer: frame-buffer words
   256..511 change no PCM word, in the JAX transform and in the port's;
+- the premise of the kernel's voice bodies: each voice's partial (16-bit
+  deltas, and a Type-1 voice's tie bits) reads no word of the frame, and
+  the partials folded in channel order (the tie rule on the running word,
+  the 93 fix-up of words 0 and 1) give the serial chain's words, on random
+  words and at $7FFF, $8000 and $FFFF, with ties forced and fix-ups that
+  saturate at both ends, in every order of a 3-voice frame and at 2..8
+  voices;
 - the collection map is the 8-bit bit reversal, which the kernel's stores
   rely on;
 - Flat93Pipeline and SessionDecoder93 with plain=True still equal the
@@ -221,6 +228,131 @@ def test_frame_buffer_words_past_255_change_no_pcm(tabs, seed):
     for a in (fb, zeroed):
         got = ttf.transform93_pcm_plain(t(a), t(vol), t(sid), tabs)
         assert np.array_equal(got.numpy(), want)
+
+
+def _sx16(x):
+    return ((np.asarray(x, np.int64) & 0xFFFF) ^ 0x8000) - 0x8000
+
+
+def _sat16(x):
+    return np.clip(x, -32768, 32767) & 0xFFFF
+
+
+def _voice(rng, kind, edges):
+    """One voice's writes over 256 words: a 93 body's (targets >= 1 and
+    distinct; per target the low word lo and the mix product X that
+    ((sx16(old) << 16 | lo) + X) >> 16 folds in), or a Type-1 body's (per
+    word the doubled pair product, prod; None where its band is silent).
+    edges: most Type-1 products tie ($8000 low) and the 93 body's word-1
+    delta is +1 or -1, so that the fix-up saturates."""
+    if kind == "93":
+        hit = rng.random(256) < rng.uniform(0.1, 1.0)
+        hit[0] = False
+        hit[1] = hit[1] or edges or rng.random() < 0.5
+        lo = rng.integers(0, 1 << 16, 256)
+        scaled = rng.integers(0, 1 << 16, 256)
+        x = _sx16(scaled) * rng.integers(0, 1 << 16)
+        if edges:                      # (lo + X) >> 16 = +1 or -1 at word 1
+            lo[1], x[1] = (0xFFFF, 1) if rng.random() < 0.5 else (0, -1)
+        return kind, np.where(hit, lo, -1), x
+    live = rng.random(256) < 0.9
+    live[254:] = False
+    prod = (_sx16(rng.integers(0, 1 << 16, 256))
+            * 2 * _sx16(rng.integers(0, 1 << 16, 256))) & 0xFFFFFFFF
+    tie = rng.random(256) < (0.7 if edges else 0.05)
+    prod = np.where(tie, (prod & ~0xFFFF) | 0x8000, prod)
+    return kind, np.where(live, prod, -1), None
+
+
+def _serial(fb, voices):
+    """The serial chain, a voice at a time on the words as they stand."""
+    fb = fb.copy()
+    for kind, a, x in voices:
+        w1 = fb[1]
+        for t in np.nonzero(a >= 0)[0]:
+            old = _sx16(fb[t]) << 16
+            if kind == "93":
+                fb[t] = (((old | a[t]) + x[t]) & 0xFFFFFFFF) >> 16
+            else:
+                res = (old + a[t] + 0x8000) & 0xFFFFFFFF
+                if a[t] & 0xFFFF == 0x8000:
+                    res &= ~0x10000
+                fb[t] = res >> 16
+        if kind == "93":               # after every 93 voice, hit or not
+            delta = _sat16(_sx16(fb[1]) - _sx16(w1))
+            fb[0] = _sat16(_sx16(delta) + _sx16(fb[0]))
+            fb[1] = w1
+    return fb
+
+
+def _fold(fb, voices):
+    """The partials, then the fold, as decode93_pcm.cu's voice bodies
+    make them: per voice its deltas d (16 bits a word) and, for a Type-1
+    voice, its tie bits, read no word of the frame; they are added in
+    channel order to words held as 32-bit ints whose bits above the low 16
+    are never read, the tie bits clearing bit 0 of the running word, and
+    after a 93 voice word 0 takes the fix-up of words 0 and 1 in place of
+    word 1's delta.  Returns the low 16 bits of each word."""
+    w = fb.astype(np.int64) & 0xFFFFFFFF
+    for kind, a, x in voices:
+        live = a >= 0
+        if kind == "93":
+            d = np.where(live, ((a + x) >> 16) & 0xFFFF, 0)
+            tie = np.zeros(256, bool)
+        else:
+            p8 = (a + 0x8000) & 0xFFFFFFFF
+            d = np.where(live, p8 >> 16, 0)
+            tie = live & (p8 & 0xFFFF == 0)
+        w0, w1 = w[0], w[1]
+        w = (w + d) & 0xFFFFFFFF
+        w[tie] &= ~1
+        if kind == "93":
+            w[0] = _sat16(_sx16(_sat16(_sx16(w1 + d[1]) - _sx16(w1)))
+                          + _sx16(w0))
+            w[1] = w1
+    return w & 0xFFFF
+
+
+@pytest.mark.parametrize("kinds", [
+    (a, b, c) for a in ("93", "t1") for b in ("93", "t1")
+    for c in ("93", "t1")])
+@pytest.mark.parametrize("edges", [False, True])
+def test_voice_partials_folded_in_channel_order_equal_the_serial_chain(
+        kinds, edges):
+    # decode93_pcm.cu's voice bodies: a 93 voice's write
+    # ((sx16(old) << 16 | lo) + X) >> 16 is old + ((lo + X) >> 16), a
+    # Type-1 voice's is old + ((prod + $8000) >> 16) with bit 0 cleared on
+    # a tie, so each voice's partial is independent of the words before
+    # it; folding the partials in channel order, with the fix-up of words
+    # 0 and 1 after each 93 voice, gives the serial chain's words, whatever
+    # the bits above each word's low 16.  Frames start from silence, from
+    # random words and from words at $7FFF, $8000 and $FFFF; each order of
+    # 93 and Type-1 voices in a 3-voice frame
+    rng = np.random.default_rng(sum(len(k) * 3 ** i
+                                    for i, k in enumerate(kinds)) + edges)
+    starts = [np.zeros(256, np.int64), rng.integers(0, 1 << 16, 256),
+              rng.choice([0x7FFF, 0x8000, 0xFFFF], 256)]
+    if edges:                      # the fix-up saturating at both ends
+        starts += [np.full(256, 0x7FFF), np.full(256, 0x8000)]
+    for start in starts:
+        for _ in range(20):
+            voices = [_voice(rng, k, edges) for k in kinds]
+            high = rng.integers(0, 1 << 16, 256) << 16
+            assert np.array_equal(_serial(start, voices),
+                                  _fold(start | high, voices))
+
+
+@pytest.mark.parametrize("seed", range(4))
+def test_voice_partials_fold_at_two_to_eight_voices(seed):
+    # the same identity over random frames of 2..8 voices of random kinds
+    rng = np.random.default_rng(100 + seed)
+    for C in range(2, 9):
+        for _ in range(10):
+            kinds = rng.choice(["93", "t1"], C)
+            voices = [_voice(rng, k, rng.random() < 0.3) for k in kinds]
+            start = rng.integers(0, 1 << 16, 256)
+            assert np.array_equal(_serial(start, voices),
+                                  _fold(start, voices))
 
 
 def test_collection_map_is_the_8_bit_bit_reversal(tabs):

@@ -25,7 +25,9 @@ codes in C = 1, 6 and 8 voices, row 0 and all-silent frames, a pool that
 ends inside a frame, the transform-to-PCM kernel at its tile edges with and
 without a carried state, the fused decode93_pcm kernel on the same inputs
 plus every band kind and width at random, frame counts around its tile and
-streams that cross it (so the halo frame is decoded), the closed-form
+streams that cross it (so the halo frame is decoded) at C = 1, 2, 3, 6
+and 8, its folds on Type-1 ties and 93 fix-ups that saturate at
+both ends at C = 2..8 with fields that cross the pool's end, the closed-form
 normalize of its square root on all 2^32 inputs, the flat sweep and a
 served batch on the card against the CPU; for the 1994+ encoder, the
 three encoder kernels on random PCM and the adversarial full-scale set at
@@ -923,7 +925,7 @@ def _random_kinds(cols, seed, silent=0.0):
 T93P = kernels.DECODE93_PCM_TILE
 
 
-@pytest.mark.parametrize("C", [1, 6, 8])
+@pytest.mark.parametrize("C", [1, 2, 3, 6, 8])
 @pytest.mark.parametrize("n", [1, T93P - 1, T93P, T93P + 1, 65, 197])
 def test_decode93_pcm_kernel_on_random_rows(dev, tabs93, rom93, C, n):
     # rows of both kinds and row 0 in every voice, mixes over the u16 range;
@@ -958,6 +960,85 @@ def test_decode93_pcm_kernel_on_random_rows(dev, tabs93, rom93, C, n):
                 for want, got in _decode93_pcm_both(cols, rows, mix, vol,
                                                     sid_t, tabs93, o):
                     assert torch.equal(want, got)
+
+
+def _far_fields(cols, seed):
+    """The columns with half the rows' fields moved to the pool's end: such
+    a row's first band starts 0..127 bits before its last whole word ends,
+    so that its fields cross the end (bits past it read as $FF)."""
+    g = torch.Generator(device=cols["bit_rel"].device).manual_seed(seed)
+    dev = cols["bit_rel"].device
+    R = cols["bit_rel"].shape[0]
+    end = cols["pool_u8"].numel() // 4 * 32
+    rel = cols["bit_rel"].long()
+    far = end - 32 * cols["frame_word"].long() - rel[:, 0] - torch.randint(
+        0, 128, (R,), generator=g, device=dev)
+    far[torch.rand(R, generator=g, device=dev) < 0.5] = 0
+    return dict(cols, bit_rel=(rel + far.clamp(min=0)[:, None])
+                .to(torch.int32))
+
+
+def _order_rule_inputs(cols, C, dev):
+    """Rows, mixes and columns whose voices hit the order rules of the
+    kernel's fold of their partials, made with numpy from C: random rows of
+    both kinds; every 93 band kind and width at random over random chain
+    states, mixes at $FFFF or $8001, so that word 1 wraps and the
+    first-sample fix-up saturates; Type-1 scale code 56 and mixes of $8000,
+    so that eff is $2000 and every product of a pair-table value = 2 mod 4
+    ties."""
+    rng = np.random.default_rng(200 + C)
+    F, R = 16 * T93P + 7, cols["kind_u8"].shape[0]
+    t = lambda a, dt=torch.int32: torch.tensor(a, dtype=dt, device=dev)
+    kind_row = cols["kind_u8"].cpu().numpy()
+    kw = cols["kw_u8"].cpu().numpy().astype(np.int64)
+    kw[:, :16] = np.where(kind_row[:, None] == d93.ROW_93,
+                          rng.integers(0, 6, (R, 16)) << 5
+                          | rng.integers(1, 25, (R, 16)), kw[:, :16])
+    code = cols["code_u8"].cpu().numpy()
+    out = dict(cols, kw_u8=t(kw, torch.uint8),
+               code_u8=t(np.where(code == 0xFF, 0xFF, 56), torch.uint8),
+               prv=t(rng.integers(-(1 << 31), 1 << 31, (R, 16))))
+    rows = rng.integers(1, R, (F, C))
+    mix = np.where(kind_row[rows] == d93.ROW_93A, 0x8000,
+                   rng.choice([0xFFFF, 0x8001], (F, C)))
+    return out, t(rows), t(mix), t(rng.integers(0, 41, F)), rng
+
+
+@pytest.mark.parametrize("C", range(2, 9))
+def test_decode93_pcm_folds_on_ties_and_saturating_fixups(
+        dev, tabs93, rom93, monkeypatch, C):
+    # the folds' order rules (_order_rule_inputs): Type-1 ties on the
+    # running word and 93 fix-ups that saturate at both ends (the plain
+    # version's clamps counted), voices of both kinds in every order,
+    # fields that cross the pool's end; flat and with a carried state
+    cols, rows, mix, vol, rng = _order_rule_inputs(rom93[1].cols, C, dev)
+    kind = cols["kind_u8"][rows.long()]
+    assert bool((kind == d93.ROW_93).any()) and bool(
+        (kind == d93.ROW_93A).any())
+    assert bool(((tabs93["pair"] & 3) == 2).any())
+    clamps = {"hi": 0, "lo": 0}
+    sat16 = d93.sat16
+
+    def counted(x):
+        clamps["hi"] += int((x > 32767).sum())
+        clamps["lo"] += int((x < -32768).sum())
+        return sat16(x)
+
+    monkeypatch.setattr(d93, "sat16", counted)
+    d93.decode93_fb_plain(cols, rows, mix, tabs93)
+    monkeypatch.setattr(d93, "sat16", sat16)
+    assert clamps["hi"] > 0 and clamps["lo"] > 0
+    n = rows.shape[0]
+    runs = np.repeat(np.arange(n), rng.integers(1, 2 * T93P, size=n))[:n]
+    sid = torch.tensor(runs.astype(np.int32), device=dev)
+    ov0 = torch.tensor(rng.integers(0, 0x10000, size=(int(runs.max()) + 3,
+                                                      16)).astype(np.int32),
+                       device=dev)
+    for c in (cols, _far_fields(cols, C)):
+        for o in (None, ov0):
+            for want, got in _decode93_pcm_both(c, rows, mix, vol, sid,
+                                                tabs93, o):
+                assert torch.equal(want, got)
 
 
 def test_decode93_pcm_kernel_on_silent_bands_and_a_short_pool(dev, tabs93):
