@@ -6,13 +6,13 @@ run without the cards the cell asks for, and prints the run's result as the
 last line of standard output.  ``run_cell`` is the run itself, on any
 device, for the tests to drive on the CPU at small sizes.
 
-A run: set-up (data checked against ``data/MANIFEST.json``, the program's
-set-up, every job shape warmed up), then with ``--trace 1`` a short traced
-sub-window read by the per-layer metrics of ``metrics/``, then the timed
-window: a closed loop that keeps ``depth`` jobs in flight for ``--seconds``
-seconds, each job ending in digests fetched into pinned host memory.  Then
-the program's state is freed and every compared number is worked out again
-by the plain reference.
+A run: set-up (data checked against each data directory's
+``MANIFEST.json``, the program's set-up, every job shape warmed up), then
+with ``--trace 1`` a short traced sub-window read by the per-layer metrics
+of ``metrics/``, then the timed window: a closed loop that keeps ``depth``
+jobs in flight for ``--seconds`` seconds, each job ending in digests
+fetched into pinned host memory.  Then the program's state is freed and
+every compared number is worked out again by the plain reference.
 """
 
 import importlib.util
@@ -65,17 +65,34 @@ def load_spec(workload, overrides=None, config_overrides=None):
     return bench, cell, config, traffic
 
 
+def data_dirs(data_dir=os.path.join(HERE, "data")):
+    """``data/`` and every directory under it, as paths relative to it
+    (``""`` for ``data/`` itself): each holds a ``MANIFEST.json`` of its
+    own files."""
+    out = []
+    for dirpath, dirs, _ in os.walk(data_dir):
+        dirs[:] = sorted(d for d in dirs if d != "__pycache__")
+        rel = os.path.relpath(dirpath, data_dir)
+        out.append("" if rel == "." else rel)
+    return out
+
+
 def check_data(data_dir=os.path.join(HERE, "data")):
-    """Raise unless every file of the manifest has its size and SHA-256."""
+    """Raise unless every file of each directory's manifest has its size
+    and SHA-256: ``data/MANIFEST.json`` first, then the ``MANIFEST.json``
+    of each directory under ``data/``, which covers the files of its own
+    directory (a configuration names them ``<dir>/<file>``)."""
     import hashlib
-    man = load_json(os.path.join(data_dir, "MANIFEST.json"))
-    for name, want in man.items():
-        with open(os.path.join(data_dir, name), "rb") as f:
-            data = f.read()
-        if len(data) != want["bytes"] or \
-                hashlib.sha256(data).hexdigest() != want["sha256"]:
-            raise RuntimeError(f"dcsbench/data/{name} differs from "
-                               f"MANIFEST.json")
+    for sub in data_dirs(data_dir):
+        man = load_json(os.path.join(data_dir, sub, "MANIFEST.json"))
+        for name, want in man.items():
+            rel = os.path.join(sub, name)
+            with open(os.path.join(data_dir, rel), "rb") as f:
+                data = f.read()
+            if len(data) != want["bytes"] or \
+                    hashlib.sha256(data).hexdigest() != want["sha256"]:
+                raise RuntimeError(f"dcsbench/data/{rel} differs from "
+                                   f"{os.path.join(sub, 'MANIFEST.json')}")
 
 
 def forbidden_modules(modules=None):

@@ -10,7 +10,8 @@ and its check against the plain reference.
   and a ``SessionServer`` and traces every batch into its control wire
   (``SessionServer.prepare``), kept in pinned memory; a job uploads one wire
   and runs ``SessionServer.decode_wire`` with a digest of each session as
-  its ``reduce_fn``.
+  its ``reduce_fn``.  The check reads the program's wire back with the
+  reader the configuration's ``rom.wire`` names (``load_wire``).
 
 A job returns its digests on the device; the loop fetches them.  After the
 window ``check`` works every compared quantity out again with the plain
@@ -18,7 +19,9 @@ reference (``dcsbench/reference``) from the same inputs and counts what
 differs.  ``inputs`` describes one job's work for the per-layer metrics.
 """
 
+import importlib.util
 import os
+import re
 
 import numpy as np
 import torch
@@ -34,6 +37,29 @@ ENQUEUE_SPAN = "dcsbench.enqueue"
 
 _OS = {"os94": ref_decoder.OS94, "os93b": ref_decoder.OS93B,
        "os93a": ref_decoder.OS93A}
+REFERENCE_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "reference")
+NAME = re.compile(r"^[A-Za-z0-9_][A-Za-z0-9_.-]{0,63}$")
+
+
+def load_wire(name, reference_dir=REFERENCE_DIR):
+    """The session wire's reader a configuration names (``rom.wire``):
+    ``reference/wire.py`` for none, else ``reference/wire_<name>.py``,
+    loaded by file.  Its ``expand(buf, S, T, C, E)`` gives (rows, mix
+    [S, T, C], vol [S, T]) of a wire, as ``wire.expand`` does."""
+    if name is None:
+        return wire
+    path = os.path.join(reference_dir, f"wire_{name}.py")
+    if not NAME.match(name) or not os.path.isfile(path):
+        raise RuntimeError(f"the configuration's wire reader {name!r} "
+                           f"needs the file {path}")
+    spec = importlib.util.spec_from_file_location(
+        f"dcsbench_wire_{name.replace('.', '_')}", path)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    if not callable(getattr(mod, "expand", None)):
+        raise RuntimeError(f"{path} defines no expand(buf, S, T, C, E)")
+    return mod
 
 
 def _read(path):
@@ -222,6 +248,7 @@ class SessionJobs:
         self.config, self.traffic, self.seed = config, traffic, seed
         self.device = device
         rom = config["rom"]
+        self.wire = load_wire(rom.get("wire"))
         self.rom_path = os.path.join(data_dir, rom["file"])
         S, T = traffic["sessions"], traffic["frames"]
         self.S, self.T, self.C = S, T, traffic["voices"]
@@ -315,8 +342,9 @@ class SessionJobs:
         for b, s, rows, mix, vol, pcm in ref:
             if b not in expanded:          # the program's wire, read back
                 host, E = self.wires[b]
-                expanded = {b: [t.cpu().numpy() for t in wire.expand(
-                    host.to(device), self.S, self.T, self.C, E)]}
+                expanded = {b: [t.cpu().numpy() for t in
+                                self.wire.expand(host.to(device), self.S,
+                                                 self.T, self.C, E)]}
             p_rows, p_mix, p_vol = (a[s] for a in expanded[b])
             plays = rows != 0
             ctl = ((p_rows != 0) != plays) | (plays & (p_mix != mix))

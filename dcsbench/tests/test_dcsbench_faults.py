@@ -11,20 +11,22 @@ import pytest
 import torch
 
 from dcsbench import control, harness
-from dcsbench_sizes import CELLS
+from dcsbench_sizes import CELLS, FAMILY_KIND
 
 SEED = 2 ** 31 + 101
 
 
 def _entry(cell):
-    """(class, method) whose output is the cell's PCM words."""
+    """(class, method) whose output is the cell's PCM words, by its
+    configuration's family and its traffic's kind."""
     from dcsexplorer_tpu_torch.models import catalogsweep as cs
     from dcsexplorer_tpu_torch.models import flatsweep as fs
     from dcsexplorer_tpu_torch.models import pipeline as pl
-    return {"os94.catalog": (fs.FlatPipeline, "forward"),
-            "os93.catalog": (cs.Flat93Pipeline, "forward"),
-            "os94.sessions": (pl.SessionDecoder, "forward"),
-            "os93.sessions": (pl.SessionDecoder93, "forward")}[cell]
+    return {("os94", "catalog"): (fs.FlatPipeline, "forward"),
+            ("os93", "catalog"): (cs.Flat93Pipeline, "forward"),
+            ("os94", "sessions"): (pl.SessionDecoder, "forward"),
+            ("os93", "sessions"): (pl.SessionDecoder93, "forward")}[
+                FAMILY_KIND[cell]]
 
 
 def stale(words, memo, step):

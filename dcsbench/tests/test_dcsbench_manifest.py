@@ -2,9 +2,11 @@
 keys and limits, every metric's reader, configuration and traffic file,
 and the data against its checksum manifest."""
 
+import hashlib
 import json
 import os
 import re
+import shutil
 
 import pytest
 
@@ -104,22 +106,79 @@ def test_files_under_paths_have_names_of_name_characters():
             assert re.match(r"^[A-Za-z0-9_./-]+$", rel), rel
 
 
+def write_manifest(directory):
+    """Write the ``MANIFEST.json`` of the data files of one directory."""
+    man = {}
+    for f in sorted(os.listdir(directory)):
+        path = os.path.join(directory, f)
+        if os.path.isfile(path) and not f.endswith((".py", ".json")):
+            with open(path, "rb") as fh:
+                data = fh.read()
+            man[f] = {"bytes": len(data),
+                      "sha256": hashlib.sha256(data).hexdigest()}
+    with open(os.path.join(directory, "MANIFEST.json"), "w") as out:
+        json.dump(man, out, indent=1)
+
+
+def check_listing(data_dir):
+    """Fail unless each data directory's files (but its ``.py`` and
+    ``.json`` ones) are the files its ``MANIFEST.json`` lists."""
+    for sub in harness.data_dirs(data_dir):
+        d = os.path.join(data_dir, sub)
+        man = harness.load_json(os.path.join(d, "MANIFEST.json"))
+        data = {f for f in os.listdir(d)
+                if os.path.isfile(os.path.join(d, f))
+                and not f.endswith((".py", ".json"))}
+        assert data == set(man), \
+            f"unlisted or missing in data/{sub}: {sorted(data ^ set(man))}"
+
+
+def _data_copy(tmp_path):
+    """A copy of ``data/`` with a directory ``title/`` of its own data
+    (a copy of a stream) under its own manifest."""
+    data = tmp_path / "data"
+    shutil.copytree(os.path.join(HERE, "data"), data)
+    (data / "title").mkdir()
+    shutil.copy(data / "music_a.dcs94", data / "title" / "stream.dcs94")
+    write_manifest(data / "title")
+    harness.check_data(str(data))
+    check_listing(str(data))
+    return data
+
+
 def test_data_matches_its_manifest():
     harness.check_data()
-    man = json.load(open(os.path.join(HERE, "data", "MANIFEST.json")))
-    data = {f for f in os.listdir(os.path.join(HERE, "data"))
-            if not f.endswith((".py", ".json"))}
-    assert data == set(man)
+    check_listing(os.path.join(HERE, "data"))
 
 
 def test_a_changed_byte_fails_the_manifest(tmp_path):
-    src = os.path.join(HERE, "data")
-    for f in os.listdir(src):
-        with open(os.path.join(src, f), "rb") as a, \
-                open(tmp_path / f, "wb") as b:
-            b.write(a.read())
-    blob = bytearray((tmp_path / "music_a.dcs94").read_bytes())
+    data = tmp_path / "data"
+    shutil.copytree(os.path.join(HERE, "data"), data)
+    blob = bytearray((data / "music_a.dcs94").read_bytes())
     blob[100] ^= 1
-    (tmp_path / "music_a.dcs94").write_bytes(bytes(blob))
+    (data / "music_a.dcs94").write_bytes(bytes(blob))
     with pytest.raises(RuntimeError, match="music_a.dcs94"):
-        harness.check_data(str(tmp_path))
+        harness.check_data(str(data))
+
+
+def test_a_changed_byte_in_a_data_directory_fails_its_manifest(tmp_path):
+    data = _data_copy(tmp_path)
+    path = data / "title" / "stream.dcs94"
+    blob = bytearray(path.read_bytes())
+    blob[100] ^= 1
+    path.write_bytes(bytes(blob))
+    with pytest.raises(RuntimeError, match="data/title/stream.dcs94 "
+                       "differs from title/MANIFEST.json"):
+        harness.check_data(str(data))
+
+
+def test_a_data_file_outside_its_manifest_fails(tmp_path):
+    data = _data_copy(tmp_path)
+    shutil.copy(data / "music_b.dcs94", data / "title" / "stray.dcs94")
+    harness.check_data(str(data))
+    with pytest.raises(AssertionError, match="stray.dcs94"):
+        check_listing(str(data))
+    # a data directory with no manifest of its own is refused too
+    (data / "title" / "MANIFEST.json").unlink()
+    with pytest.raises(FileNotFoundError, match="title/MANIFEST.json"):
+        harness.check_data(str(data))
