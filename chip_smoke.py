@@ -253,9 +253,20 @@ non-zero):
      frames + 77 samples (two tracks, a volume command), snapshot,
      pickled, loaded into fresh decoders: the next 200 frames equal the
      uninterrupted run and the card's play_session of the same events
+ 23. the full eight-chip title (dcsbench/data/os94full/rom94full.zip, a
+     bank past 64Ki rows): one batch of 640 sessions x 1,000 frames x 6
+     voices (os94full.sessions' shape, each voice dealt its channel's
+     tracks from the last down) through SessionServer on the wide wire,
+     with the counters at 0 just before it: one launch each of
+     segments94_rows32, session_mix94 and transform94_pcm and none of
+     segments94; the batch equals the plain-version server on the card and
+     sessions 0 and 639 the port's ReferenceDecoder (first 250 frames);
+     segments94_rows32 against its plain version at that wire, timed
+     beside its bound as in phase 3 (phases 7, 11 and 20 require that it
+     never launches on their banks, all under 64Ki rows)
 Then the script's wall time, one JSON line of per-kernel results
-(launches: over all thirteen paths, each path's own printed in phases 4,
-7, 10, 11, 13, 14, 15, 17, 18, 19, 20, 21 and 22), and last the
+(launches: over all fourteen paths, each path's own printed in phases 4,
+7, 10, 11, 13, 14, 15, 17, 18, 19, 20, 21, 22 and 23), and last the
 {"ok": true, ...} line.
 There is no CPU path: without a CUDA device the script exits 1.
 """
@@ -302,6 +313,11 @@ SESSION6_ZIP = os.path.join(HERE, "dcsexplorer_tpu_torch", "data",
 SESSION93A_ZIP = os.path.join(HERE, "dcsexplorer_tpu_torch", "data",
                               "session93a.zip")
 DATA = os.path.join(HERE, "dcsexplorer_tpu_torch", "data")
+# the eight-chip DCS-95 title of dcsbench's os94full configuration: a bank
+# past 64Ki rows, so its sessions travel on the wide wire
+FULL_TITLE_ZIP = os.path.join(HERE, "dcsbench", "data", "os94full",
+                              "rom94full.zip")
+FULL_SESSIONS, FULL_INTERVAL = 640, 261    # os94full.sessions' batch
 SESSIONS, SESSION_FRAMES, VOICES, SEG_E = 320, 1000, 6, 32   # bench.py session6
 COPIES93 = 72                  # x 2 streams: bench.py's dec93b and dec93a_t1
 REF_FRAMES = 250               # frames held against the scalar decoder
@@ -399,6 +415,25 @@ def session_events(b):
         events.setdefault((b * 7 + t * 3) % 40, []).extend([0x00, t])
     vol = 0x40 + (b % 64)
     events.setdefault(0, []).extend([0x55, 0xAA, vol, vol ^ 0xFF])
+    return events
+
+
+def full_title_events(b, n_tracks):
+    """Session b of a batch on the full title (tracks 1..n_tracks, track
+    k + 1 on channel k mod 6), os94full.sessions' shape: each voice starts
+    a track of its channel every FULL_INTERVAL frames from frame
+    (b * 7 + v * 3) % 40, dealt from the last track down so that session
+    0's voices start on the title's last tracks; then a master volume."""
+    per = n_tracks // VOICES
+    events = {}
+    for v in range(VOICES):
+        for i, f in enumerate(range((b * 7 + v * 3) % 40, SESSION_FRAMES,
+                                    FULL_INTERVAL)):
+            j = per - 1 - (b * 4 + i) % per
+            track = 1 + v + VOICES * j
+            events.setdefault(f, []).extend([track >> 8, track & 0xFF])
+    vol = 0x40 + (b % 64)
+    events.setdefault(0, [])[:0] = [0x55, 0xAA, vol, vol ^ 0xFF]
     return events
 
 
@@ -569,6 +604,8 @@ def main():
                           "dcsexplorer_tpu/models/pipeline.py:76"),
         "segments94": ("segments94.cu",
                        "dcsexplorer_tpu/models/romplay.py:115"),
+        "segments94_rows32": ("segments94.cu",
+                              "dcsexplorer_tpu/models/romplay.py:115"),
         "session_mix94": ("session_mix94.cu",
                           "dcsexplorer_tpu/models/pipeline.py:308"),
         "transform94_pcm_carry": ("transform94_pcm.cu",
@@ -809,9 +846,10 @@ def main():
     s_launches = dict(kernels.LAUNCHES)
     on_session_path = ("decode94_bank", "segments94", "session_mix94",
                        "transform94_pcm", "transform94_pcm_carry")
-    if not all(s_launches[k] > 0 for k in on_session_path):
-        raise AssertionError(f"a kernel of the session path did not launch: "
-                             f"{s_launches}")
+    if not all(s_launches[k] > 0 for k in on_session_path) \
+            or s_launches["segments94_rows32"]:
+        raise AssertionError(f"a kernel of the session path did not launch, "
+                             f"or the wide wire's did: {s_launches}")
     if got.shape != (S, T * 240) or got.dtype != np.int16:
         raise AssertionError(f"session batch {got.shape} {got.dtype}")
     # the bank the batch ran on, against the plain version on its columns
@@ -1126,7 +1164,8 @@ def main():
     if not all(s93_launches[k] > 0 for k in (
             "segments94", "decode93_pcm", "decode93_pcm_carry")) or any(
             s93_launches[k] for k in ("decode93_fb", "transform93_pcm",
-                                      "transform93_pcm_carry")):
+                                      "transform93_pcm_carry",
+                                      "segments94_rows32")):
         raise AssertionError(f"the 1993 session path did not run through "
                              f"segments94 and decode93_pcm: {s93_launches}")
     if got93.shape != (S, T * 240) or got93.dtype != np.int16:
@@ -2516,9 +2555,9 @@ def main():
     p20 = dict(kernels.LAUNCHES)
     on_play = ("decode94_bank", "segments94", "session_mix94",
                "transform94_pcm")
-    if not all(p20[k] > 0 for k in on_play):
-        raise AssertionError(f"a kernel of the playback did not launch: "
-                             f"{p20}")
+    if not all(p20[k] > 0 for k in on_play) or p20["segments94_rows32"]:
+        raise AssertionError(f"a kernel of the playback did not launch, or "
+                             f"the wide wire's did: {p20}")
     for b in (0, ROM_SESSIONS - 1):
         dec = rd.ReferenceDecoder()
         dec.default_volume = 0x67
@@ -3043,6 +3082,76 @@ def main():
         r["launches"] += a22[k] + at22[k] + v22[k] + c22[k]
     shutil.rmtree(work22, ignore_errors=True)
     shutil.rmtree(work, ignore_errors=True)
+
+    # 23. the full eight-chip title: one batch at os94full.sessions' width
+    t23 = time.perf_counter()
+    rs23, _ = zipload.load_zip_file(FULL_TITLE_ZIP)
+    if rs23.check() != 1 or rs23.os_version != rd.OS94:
+        raise AssertionError("rom94full.zip does not load as an OS94 ROM")
+    bank23 = romplay.build_rom_bank(rs23, dev)
+    S, T, C = FULL_SESSIONS, SESSION_FRAMES, VOICES
+    F = S * T
+    batch23 = [full_title_events(b, rs23.n_tracks - 1) for b in range(S)]
+    with romplay.SessionServer(rs23, S, T, n_ch=C, seg_e=SEG_E, bank=bank23,
+                               device=dev) as srv23:
+        wire23_np, E23 = srv23.prepare(batch23)
+        wire23 = torch.tensor(wire23_np, device=dev)
+        for k in kernels.LAUNCHES:
+            kernels.LAUNCHES[k] = 0
+        got23 = srv23.decode_wire(wire23, E23).cpu().numpy()
+        w23 = dict(kernels.LAUNCHES)
+    if not srv23.wide or wire23.numel() != 9 * S * C * E23 + S * T:
+        raise AssertionError(f"rom94full.zip ({bank23.total_rows()} rows): "
+                             f"the batch is not on the wide wire")
+    if {k: v for k, v in w23.items() if v} != {
+            "segments94_rows32": 1, "session_mix94": 1, "transform94_pcm": 1}:
+        raise AssertionError(f"the full title's batch did not run once "
+                             f"through segments94_rows32: {w23}")
+    with romplay.SessionServer(rs23, S, T, n_ch=C, seg_e=SEG_E, bank=bank23,
+                               device=dev, plain=True) as plain23:
+        want23 = plain23.decode_wire(wire23, E23).cpu().numpy()
+    if not np.array_equal(want23, got23):
+        bad = np.argwhere(want23 != got23)
+        raise AssertionError(f"full-title batch != plain batch at "
+                             f"{bad.shape[0]} samples, first {bad[0]}")
+    del want23
+    for b in (0, S - 1):
+        dec = rd.ReferenceDecoder()
+        dec.default_volume = 0x67
+        dec.load_rom_set(rs23)
+        dec.soft_boot()
+        ref = []
+        for f in range(REF_FRAMES):
+            for byte in batch23[b].get(f, ()):
+                dec.write_data_port(byte)
+            ref.extend(dec.next_samples(240))
+        ref = np.array(ref, dtype=np.int16)
+        if not np.array_equal(ref, got23[b, :REF_FRAMES * 240]):
+            bad = np.nonzero(ref != got23[b, :REF_FRAMES * 240])[0]
+            raise AssertionError(f"full-title session {b}: {bad.size} "
+                                 f"samples differ from the scalar decoder, "
+                                 f"first {bad[0]}")
+    # the wide instance against its plain version at the cell's shape; a
+    # wire of u32 bases, as phase 8 counts segments94's bytes and operations
+    rows23 = check(
+        "segments94_rows32",
+        lambda: romplay.segments94_plain(wire23, S, T, C, E23),
+        lambda: kernels.segments94(wire23, S, T, C, E23), 2, 20,
+        wire23.numel() + F * C * 8 + F * 4, F * C * 3, phase=23)[0]
+    results["segments94_rows32"]["launches"] = w23["segments94_rows32"]
+    base23 = romplay.unpack_controls_wire(wire23, S, T, C, E23)[1]
+    print(f"phase 23 full title: rom94full.zip, {sum(c is not None for c in rs23.chips)} chips, "
+          f"bank {bank23.total_rows()} rows; one batch of {S} sessions x "
+          f"{T} frames x {C} voices on the wide wire ({wire23.numel()} B, "
+          f"E {E23}; {int((base23 >= 1 << 16).sum())} segment bases and "
+          f"{int((rows23 >= 1 << 16).sum())} of {F * C} voice-frames past "
+          f"u16) through SessionServer, bit-exact with the plain batch on "
+          f"the card, sessions 0 and {S - 1} with the port's "
+          f"ReferenceDecoder over {REF_FRAMES} frames; launches "
+          f"{dict((k, v) for k, v in w23.items() if v)}; phase wall "
+          f"{time.perf_counter() - t23:.1f} s")
+    del wire23, rows23, base23, got23, bank23
+    torch.cuda.empty_cache()
 
     print(f"chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"kernels": list(results.values())}))

@@ -9,7 +9,11 @@ controls into PCM (``pipeline.SessionDecoder93`` for a 1993 ROM).  A
 served batch of S sessions × T frames travels as one
 uint8 control wire, per-lane linear segments plus the volume column
 (``pack_controls_wire``), which ``segments94`` expands on the card into
-dense per-frame rows, mixes and volume shifts.
+dense per-frame rows, mixes and volume shifts.  The wire names a
+segment's first bank row in 16 bits for a bank under 64Ki rows (the JAX
+package's wire, byte for byte) and in 32 bits for a larger bank, under
+2^24 rows (the wide wire, this package's own); ``wide_wire`` picks one
+from the bank's row count.
 
 Device stages of one served batch, each a hand-written kernel on CUDA
 tensors (``ops/kernels.py``), its plain PyTorch version on CPU tensors:
@@ -56,7 +60,22 @@ def build_rom_bank(rom_set, device="cuda"):
     return bank.decode_all(device)
 
 
-def compress_controls(rows, mix, max_segments=255):
+# the bank rows each wire can name: under 64Ki (u16 base), under 2^24 (the
+# wide wire's u32 base, which the kernel packs beside the u8 slope in one
+# 32-bit word)
+ROWS16_LIMIT, ROWS32_LIMIT = 1 << 16, 1 << 24
+
+
+def wide_wire(n_rows):
+    """Whether a bank of n_rows rows travels on the wide wire: False under
+    64Ki rows, True from there to 2^24 - 1; raises beyond."""
+    if n_rows >= ROWS32_LIMIT:
+        raise ValueError(f"a bank of {n_rows} rows: the session wire names "
+                         f"rows under 2^24")
+    return n_rows >= ROWS16_LIMIT
+
+
+def compress_controls(rows, mix, max_segments=255, wide=False):
     """Per-lane linear segments of dense controls (host numpy).
 
     A playing channel's bank row advances by 1 a frame (wrapping at loop
@@ -64,15 +83,17 @@ def compress_controls(rows, mix, max_segments=255):
     constant, so each (session, channel) lane is a few segments
     ``row[t] = base + slope * (t - f0)`` with a constant mix.
 
-    rows/mix: [S, T, C] integers.  Returns a dict of numpy arrays (f0 u16,
-    base u16, slope u8, mixv u16, all [S, C, E]; unused f0 entries hold
-    $FFFF), or None if a lane needs more than ``max_segments`` segments.
-    The native trace emits the same segments (trace_segs).
+    rows/mix: [S, T, C] integers, rows under 64Ki (under 2^24 where
+    ``wide``).  Returns a dict of numpy arrays (f0 u16, base u16 or, where
+    ``wide``, u32, slope u8, mixv u16, all [S, C, E]; unused f0 entries
+    hold $FFFF), or None if a lane needs more than ``max_segments``
+    segments.  The native trace emits the same segments (trace_segs).
     """
     rows = np.asarray(rows, np.int64)
     mix = np.asarray(mix, np.int64)
     S, T, C = rows.shape
-    assert T < 0xFFFF and rows.max(initial=0) < (1 << 16) \
+    assert T < 0xFFFF and rows.max(initial=0) < (
+        ROWS32_LIMIT if wide else ROWS16_LIMIT) \
         and mix.max(initial=0) < (1 << 16)
     d = rows[:, 1:] - rows[:, :-1]                      # [S, T-1, C]
     ok = (d == 0) | (d == 1)
@@ -101,36 +122,57 @@ def compress_controls(rows, mix, max_segments=255):
     in_seg = ~is_start[:, 1:]                           # step t-1 -> t stays
     s_j, t_j, c_j = np.nonzero(in_seg)
     slope[s_j, c_j, seg_id[s_j, t_j + 1, c_j]] = d[s_j, t_j, c_j]
-    return dict(f0=f0.astype(np.uint16), base=base.astype(np.uint16),
+    return dict(f0=f0.astype(np.uint16),
+                base=base.astype(np.uint32 if wide else np.uint16),
                 slope=slope.astype(np.uint8), mixv=mixv.astype(np.uint16))
+
+
+# a wire's base column by the dtype of the segments' base: the u16 wire and
+# the wide wire
+_BASE_LE = {np.dtype(np.uint16): "<u2", np.dtype(np.uint32): "<u4"}
 
 
 def pack_controls_wire(comp, vol):
     """A compressed control batch and its volume column as one uint8 wire:
     slope [S, C, E], vol [S, T], then f0, base and mixv [S, C, E] as
-    little-endian u16 (host numpy)."""
+    little-endian u16, base as little-endian u32 where it is uint32 (the
+    wide wire; host numpy)."""
+    if comp["base"].dtype not in _BASE_LE:
+        raise ValueError(f"base is {comp['base'].dtype}: the wire carries "
+                         "uint16 or uint32 rows")
     vol = np.asarray(vol, np.uint8)
     parts = [comp["slope"].reshape(-1), vol.reshape(-1),
              comp["f0"].astype("<u2").view(np.uint8).reshape(-1),
-             comp["base"].astype("<u2").view(np.uint8).reshape(-1),
+             comp["base"].astype(_BASE_LE[comp["base"].dtype])
+             .view(np.uint8).reshape(-1),
              comp["mixv"].astype("<u2").view(np.uint8).reshape(-1)]
     return np.concatenate(parts)
 
 
 def unpack_controls_wire(buf, S, T, C, E):
-    """Inverse of pack_controls_wire on a uint8 tensor.  Returns (f0, base,
-    slope, mixv [S, C, E], vol [S, T]), int32."""
+    """Inverse of pack_controls_wire on a uint8 tensor, either wire (told by
+    its length).  Returns (f0, base, slope, mixv [S, C, E], vol [S, T]),
+    int32."""
+    bw = kernels.wire_base_bytes(buf.numel(), S, T, C, E)
+    if bw is None:
+        raise ValueError(f"wire: shape ({buf.numel()},), expected "
+                         f"({7 * S * C * E + S * T},) or "
+                         f"({9 * S * C * E + S * T},)")
     n_par = S * C * E
     buf = buf.long()
     o = 0
     slope = buf[o:o + n_par].reshape(S, C, E); o += n_par
     vol = buf[o:o + S * T].reshape(S, T); o += S * T
 
-    def u16(n):
-        w = buf[n:n + 2 * n_par].reshape(-1, 2)
-        return (w[:, 0] | (w[:, 1] << 8)).reshape(S, C, E)
+    def le(n, width):
+        w = buf[n:n + width * n_par].reshape(-1, width)
+        word = w[:, 0]
+        for i in range(1, width):
+            word = word | (w[:, i] << 8 * i)
+        return word.reshape(S, C, E)
 
-    f0, base, mixv = u16(o), u16(o + 2 * n_par), u16(o + 4 * n_par)
+    f0, base = le(o, 2), le(o + 2 * n_par, bw)
+    mixv = le(o + (2 + bw) * n_par, 2)
     return tuple(a.int() for a in (f0, base, slope, mixv, vol))
 
 
@@ -154,8 +196,8 @@ def reconstruct_from_segments(f0, base, slope, mixv, n_frames):
 
 
 def segments94_plain(wire, S, T, C, E):
-    """Plain version of the segments94 kernel: the control wire of S
-    sessions × T frames × C channels with E segments a lane -> (rows
+    """Plain version of the segments94 kernel: the control wire (either) of
+    S sessions × T frames × C channels with E segments a lane -> (rows
     [S*T, C], mix [S*T, C], vol [S*T]), int32 (unpack_controls_wire, then
     reconstruct_from_segments)."""
     f0, base, slope, mixv, vol = unpack_controls_wire(wire, S, T, C, E)
@@ -188,7 +230,9 @@ class SessionServer:
     ``reduce_fn``'s result fetched to the host: ``reduce_fn`` receives the
     decoder's words [S, n_frames * 240] (int32, u16 storage) on the device
     and returns a tensor.  ``plain=True`` runs the plain PyTorch versions
-    of the kernels on the server's device (the comparison path).
+    of the kernels on the server's device (the comparison path).  A bank
+    of 64Ki rows or more travels on the wide wire (``wide``), one of 2^24
+    or more is refused.
 
         with SessionServer(rom_set, n_sessions=64, n_frames=500) as srv:
             for pcm in srv.serve(batches_of_event_dicts):
@@ -213,8 +257,7 @@ class SessionServer:
         self.plain = plain
         self.device = dev
         self.bank = bank if bank is not None else build_rom_bank(rom_set, dev)
-        if self.bank.total_rows() >= (1 << 16):
-            raise ValueError("u16 row ids need a bank under 64Ki rows")
+        self.wide = wide_wire(self.bank.total_rows())
         self.decoder = pl.session_decoder(self.bank, dev, plain=plain)
         self._addr_tab, self._off_tab = nt.stream_row_table(rom_set,
                                                             self.bank)
@@ -240,7 +283,8 @@ class SessionServer:
             while True:
                 E = self.seg_e
                 f0 = np.full((S, C, E), 0xFFFF, np.uint16)
-                base = np.zeros((S, C, E), np.uint16)
+                base = np.zeros((S, C, E),
+                                np.uint32 if self.wide else np.uint16)
                 slope = np.zeros((S, C, E), np.uint8)
                 mixv = np.zeros((S, C, E), np.uint16)
                 vol = np.zeros((S, T), np.uint8)
@@ -249,7 +293,8 @@ class SessionServer:
                     vol, events_list)
                 if ok:
                     return pack_controls_wire(
-                        dict(f0=f0, base=base, slope=slope, mixv=mixv), vol), E
+                        dict(f0=f0, base=base, slope=slope, mixv=mixv),
+                        vol), E
                 if E >= kernels.MAX_SEGMENTS:
                     raise ValueError("a session lane exceeds 255 segments")
                 self.seg_e = min(kernels.MAX_SEGMENTS, 2 * E)

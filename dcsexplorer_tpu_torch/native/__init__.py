@@ -69,6 +69,9 @@ _SIGNATURES = {
                          + [_P] * 5),
     "dcstr_trace_segs_batch": (C.c_int, [_P, _I, _I, _P, _P, _P, _P, _P, _I,
                                          _I, _I] + [_P] * 5),
+    # the wide wire's batch: base uint32, the arguments as the one above
+    "dcstr_trace_segs32_batch": (C.c_int, [_P, _I, _I, _P, _P, _P, _P, _P,
+                                           _I, _I, _I] + [_P] * 5),
     # ci, F, NF, PMAX, w_lut, sf_lut, amin, amax, pip, dep, n_p, thr,
     # bands_keep, sil_max, band_sizes, delta_lo, delta_len, delta_val,
     # delta_bits, cb_code, cb_bits, tz_code, tz_bits, out, out_cap, winner

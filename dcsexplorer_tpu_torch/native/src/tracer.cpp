@@ -734,7 +734,8 @@ int dcstr_trace(void* h, int n_frames, const int32_t* ev_frame,
 // u16/u16/u8 link dtypes the device batch uses.  Replaces the
 // per-session numpy assembly pass, the largest host term in end-to-end
 // session serving.  Returns 0; -2 on a ResetError-class fault; -3 if a
-// traced stream address is missing from the table.
+// traced stream address is missing from the table; -6 if a row id does not
+// fit u16 (a bank of 64Ki rows or more: the segment trace's wide wire).
 int dcstr_trace_rows(void* h, int n_frames, const int32_t* ev_frame,
                      const uint8_t* ev_byte, int n_ev,
                      const int64_t* addr_tab, const int32_t* off_tab,
@@ -762,13 +763,19 @@ int dcstr_trace_rows(void* h, int n_frames, const int32_t* ev_frame,
             const int64_t* lo = std::lower_bound(addr_tab, addr_tab + n_tab,
                                                  a);
             if (lo == addr_tab + n_tab || *lo != a) return -3;
-            rr[i] = static_cast<uint16_t>(off_tab[lo - addr_tab] + fi[i]);
+            const int32_t row = off_tab[lo - addr_tab] + fi[i];
+            if (row > 0xFFFF) return -6;
+            rr[i] = static_cast<uint16_t>(row);
             mm[i] = static_cast<uint16_t>(m[i]);
         }
         out_vshift[f] = static_cast<uint8_t>(v);
     }
     return 0;
 }
+
+}  // extern "C"
+
+namespace {
 
 // Fused trace + control-plane SEGMENT emission — the compressed serving
 // path (models/romplay.py).  A playing lane's dense-row id advances by
@@ -780,7 +787,7 @@ int dcstr_trace_rows(void* h, int n_frames, const int32_t* ev_frame,
 // parameter tables (the device derives the per-frame segment index from
 // f0; romplay.reconstruct_from_segments).
 //
-// Outputs (caller-allocated, C-contiguous): f0/base/mixv uint16
+// Outputs (caller-allocated, C-contiguous): f0/mixv uint16 and base Base
 // [n_ch, max_segs], slope uint8 [n_ch, max_segs], vshift uint8
 // [n_frames].  Unused f0 entries are left at 0xFFFF so a device-side
 // ``f0 <= t`` count needs no segment-count column.  Returns 0; -2 on a
@@ -788,20 +795,26 @@ int dcstr_trace_rows(void* h, int n_frames, const int32_t* ev_frame,
 // table; -4 if any lane needs more than max_segs segments (caller falls
 // back to the dense upload); -5 if a lane >= n_ch goes live (the caller
 // promised those channels idle).
-int dcstr_trace_segs(void* h, int n_frames, const int32_t* ev_frame,
-                     const uint8_t* ev_byte, int n_ev,
-                     const int64_t* addr_tab, const int32_t* off_tab,
-                     int n_tab, int n_ch, int max_segs,
-                     uint16_t* out_f0, uint16_t* out_base,
-                     uint8_t* out_slope, uint16_t* out_mixv,
-                     uint8_t* out_vshift) {
+//
+// Base is the base column's type: uint16_t for the wire of a bank under
+// 64Ki rows, uint32_t for the wide wire of a bank under 2^24 rows
+// (dcstr_trace_segs32_batch).  The caller picks the wire from
+// the bank's row count, so every row id fits its column.
+template <typename Base>
+int trace_segs(void* h, int n_frames, const int32_t* ev_frame,
+               const uint8_t* ev_byte, int n_ev,
+               const int64_t* addr_tab, const int32_t* off_tab,
+               int n_tab, int n_ch, int max_segs,
+               uint16_t* out_f0, Base* out_base,
+               uint8_t* out_slope, uint16_t* out_mixv,
+               uint8_t* out_vshift) {
     Tracer* t = static_cast<Tracer*>(h);
     if (n_ch < 1 || n_ch > NCH || max_segs < 1 || n_frames >= 0xFFFF)
         return -1;
     std::memset(out_f0, 0xFF,
                 static_cast<size_t>(n_ch) * max_segs * sizeof(uint16_t));
     std::memset(out_base, 0,
-                static_cast<size_t>(n_ch) * max_segs * sizeof(uint16_t));
+                static_cast<size_t>(n_ch) * max_segs * sizeof(Base));
     std::memset(out_mixv, 0,
                 static_cast<size_t>(n_ch) * max_segs * sizeof(uint16_t));
     std::memset(out_slope, 0, static_cast<size_t>(n_ch) * max_segs);
@@ -837,12 +850,12 @@ int dcstr_trace_segs(void* h, int n_frames, const int32_t* ev_frame,
             if (i >= n_ch) continue;
             Lane& L = lane[i];
             uint16_t* f0 = out_f0 + static_cast<size_t>(i) * max_segs;
-            uint16_t* ba = out_base + static_cast<size_t>(i) * max_segs;
+            Base* ba = out_base + static_cast<size_t>(i) * max_segs;
             uint8_t* sl = out_slope + static_cast<size_t>(i) * max_segs;
             uint16_t* mx = out_mixv + static_cast<size_t>(i) * max_segs;
             if (f == 0) {
                 f0[0] = 0;
-                ba[0] = static_cast<uint16_t>(row);
+                ba[0] = static_cast<Base>(row);
                 mx[0] = static_cast<uint16_t>(mix);
                 L = Lane{1, false, 0, row, mix, false, 0};
             } else {
@@ -863,7 +876,7 @@ int dcstr_trace_segs(void* h, int n_frames, const int32_t* ev_frame,
                 } else {
                     if (L.nseg >= max_segs) return -4;
                     f0[L.nseg] = static_cast<uint16_t>(f);
-                    ba[L.nseg] = static_cast<uint16_t>(row);
+                    ba[L.nseg] = static_cast<Base>(row);
                     mx[L.nseg] = static_cast<uint16_t>(mix);
                     ++L.nseg;
                     L.have_slope = false;
@@ -890,19 +903,20 @@ int dcstr_trace_segs(void* h, int n_frames, const int32_t* ev_frame,
 // BATCH replaces S Python-loop calls — the serving path's host stage is
 // pure C end-to-end (bench.bench_session6.prepare).  Returns 0, or the
 // first session's error code (same codes as dcstr_trace_segs).
-int dcstr_trace_segs_batch(void* h, int n_sessions, int n_frames,
-                           const int32_t* ev_off, const int32_t* ev_frame,
-                           const uint8_t* ev_byte,
-                           const int64_t* addr_tab, const int32_t* off_tab,
-                           int n_tab, int n_ch, int max_segs,
-                           uint16_t* out_f0, uint16_t* out_base,
-                           uint8_t* out_slope, uint16_t* out_mixv,
-                           uint8_t* out_vshift) {
+template <typename Base>
+int trace_segs_batch(void* h, int n_sessions, int n_frames,
+                     const int32_t* ev_off, const int32_t* ev_frame,
+                     const uint8_t* ev_byte,
+                     const int64_t* addr_tab, const int32_t* off_tab,
+                     int n_tab, int n_ch, int max_segs,
+                     uint16_t* out_f0, Base* out_base,
+                     uint8_t* out_slope, uint16_t* out_mixv,
+                     uint8_t* out_vshift) {
     const size_t seg = static_cast<size_t>(n_ch) * max_segs;
     for (int b = 0; b < n_sessions; ++b) {
         static_cast<Tracer*>(h)->full_reset();
         const int e0 = ev_off[b], e1 = ev_off[b + 1];
-        const int rc = dcstr_trace_segs(
+        const int rc = trace_segs<Base>(
             h, n_frames, ev_frame + e0, ev_byte + e0, e1 - e0,
             addr_tab, off_tab, n_tab, n_ch, max_segs,
             out_f0 + seg * b, out_base + seg * b, out_slope + seg * b,
@@ -911,6 +925,46 @@ int dcstr_trace_segs_batch(void* h, int n_sessions, int n_frames,
         if (rc != 0) return rc;
     }
     return 0;
+}
+
+}  // namespace
+
+extern "C" {
+
+// The segment traces: one session or a batch with base u16 (the wire of a
+// bank under 64Ki rows), a batch with base u32 (the wide wire).
+int dcstr_trace_segs(void* h, int n_frames, const int32_t* ev_frame,
+        const uint8_t* ev_byte, int n_ev, const int64_t* addr_tab,
+        const int32_t* off_tab, int n_tab, int n_ch, int max_segs,
+        uint16_t* out_f0, uint16_t* out_base, uint8_t* out_slope,
+        uint16_t* out_mixv, uint8_t* out_vshift) {
+    return trace_segs<uint16_t>(
+        h, n_frames, ev_frame, ev_byte, n_ev, addr_tab, off_tab, n_tab, n_ch,
+        max_segs, out_f0, out_base, out_slope, out_mixv, out_vshift);
+}
+
+int dcstr_trace_segs_batch(void* h, int n_sessions, int n_frames,
+        const int32_t* ev_off, const int32_t* ev_frame,
+        const uint8_t* ev_byte, const int64_t* addr_tab,
+        const int32_t* off_tab, int n_tab, int n_ch, int max_segs,
+        uint16_t* out_f0, uint16_t* out_base, uint8_t* out_slope,
+        uint16_t* out_mixv, uint8_t* out_vshift) {
+    return trace_segs_batch<uint16_t>(
+        h, n_sessions, n_frames, ev_off, ev_frame, ev_byte, addr_tab, off_tab,
+        n_tab, n_ch, max_segs, out_f0, out_base, out_slope, out_mixv,
+        out_vshift);
+}
+
+int dcstr_trace_segs32_batch(void* h, int n_sessions, int n_frames,
+        const int32_t* ev_off, const int32_t* ev_frame,
+        const uint8_t* ev_byte, const int64_t* addr_tab,
+        const int32_t* off_tab, int n_tab, int n_ch, int max_segs,
+        uint16_t* out_f0, uint32_t* out_base, uint8_t* out_slope,
+        uint16_t* out_mixv, uint8_t* out_vshift) {
+    return trace_segs_batch<uint32_t>(
+        h, n_sessions, n_frames, ev_off, ev_frame, ev_byte, addr_tab, off_tab,
+        n_tab, n_ch, max_segs, out_f0, out_base, out_slope, out_mixv,
+        out_vshift);
 }
 
 int dcstr_read_host(void* h, uint8_t* out, int cap) {

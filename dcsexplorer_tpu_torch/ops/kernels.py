@@ -41,9 +41,11 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
               "-v")
 
 # launches per kernel; each wrapper adds one where it launches its kernel
-# (x_carry: kernel x's instance with a carried overlap state)
+# (x_carry: kernel x's instance with a carried overlap state;
+# segments94_rows32: segments94's instance for the wide wire)
 LAUNCHES = {"decode94_fb": 0, "decode94_bank": 0, "dequant_mix": 0,
-            "dequant_mix_dense": 0, "segments94": 0, "session_mix94": 0,
+            "dequant_mix_dense": 0, "segments94": 0,
+            "segments94_rows32": 0, "session_mix94": 0,
             "transform94_planar": 0, "transform94_pcm": 0, "transform94_pcm_carry": 0,
             "decode93_fb": 0, "transform93_pcm": 0,
             "transform93_pcm_carry": 0, "decode93_pcm": 0,
@@ -75,6 +77,8 @@ _SIGNATURES = {
                           *[_P] * 8, _P, _I, _I, _P],
     # wire, n_sessions, n_frames, n_ch, n_seg, rows, mix, vol, stream
     "dcs_segments94": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
+    # the same on the wide wire (u32 base)
+    "dcs_segments94_rows32": [_P, _I, _I, _I, _I, _P, _P, _P, _P],
     # bank, n_rows, rows, mix, out, n_frames, n_ch, stream
     "dcs_session_mix94": [_P, _I, _P, _P, _P, _I, _I, _P],
     # pos_vals, scale, total, mix, fb_prev (nullable), out,
@@ -435,25 +439,42 @@ def decode94_bank(pool_u8, sid, start_bit, bt_u8, hdr_tab, fmt_tab, sub_tab,
 MAX_CHANNELS, MAX_SEGMENTS = 8, 255
 
 
+def wire_base_bytes(n_wire, S, T, C, E):
+    """The bytes of a segment's first bank row on a control wire of n_wire
+    bytes for S sessions x T frames x C channels x E segments: 2 on the u16
+    wire (7 bytes a segment entry), 4 on the wide wire (9), None on a
+    length of neither."""
+    for width in (2, 4):
+        if n_wire == (5 + width) * S * C * E + S * T:
+            return width
+    return None
+
+
 def segments94(wire, S, T, C, E):
     """The control wire -> dense rows, mix [S*T, C] and vol [S*T], int32, on
-    the card (csrc/segments94.cu); see romplay.segments94_plain for the
+    the card (csrc/segments94.cu; the wide wire, told by its length, through
+    its segments94_rows32 instance); see romplay.segments94_plain for the
     contract."""
-    with span("dcs.kernel.segments94"):
+    kernel = ("segments94_rows32"
+              if wire_base_bytes(wire.numel(), S, T, C, E) == 4
+              else "segments94")
+    with span(f"dcs.kernel.{kernel}"):
         if not (1 <= C <= MAX_CHANNELS and 1 <= E <= MAX_SEGMENTS):
             raise ValueError(f"{C} channels of {E} segments; expected 1..8 "
                              "and 1..255")
+        n_wire = (9 if kernel == "segments94_rows32" else 7) * S * C * E \
+            + S * T
         if not (S >= 0 and 0 <= T < 0xFFFF and S * T * C < 1 << 31
-                and 7 * S * C * E + S * T < 1 << 31):
+                and n_wire < 1 << 31):
             raise ValueError(f"{S} sessions of {T} frames")
         dev = wire.device
-        _check("wire", wire, torch.uint8, (7 * S * C * E + S * T,))
+        _check("wire", wire, torch.uint8, (n_wire,))
         rows = torch.empty((S * T, C), dtype=torch.int32, device=dev)
         mix = torch.empty((S * T, C), dtype=torch.int32, device=dev)
         vol = torch.empty((S * T,), dtype=torch.int32, device=dev)
         if S and T:
-            _launch("segments94", "dcs_segments94", dev, wire.data_ptr(), S, T,
-                    C, E, rows.data_ptr(), mix.data_ptr(), vol.data_ptr())
+            _launch(kernel, f"dcs_{kernel}", dev, wire.data_ptr(), S, T, C, E,
+                    rows.data_ptr(), mix.data_ptr(), vol.data_ptr())
         return rows, mix, vol
 
 

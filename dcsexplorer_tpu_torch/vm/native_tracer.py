@@ -41,6 +41,13 @@ def _p(a):
     return a.ctypes.data_as(C.c_void_p)
 
 
+# the batched segment trace's C entries by the base column's type: u16 for
+# the wire of a bank under 64Ki rows, u32 for the wide wire
+# (models/romplay.py)
+_SEGS_BATCH = {np.dtype(np.uint16): "dcstr_trace_segs_batch",
+               np.dtype(np.uint32): "dcstr_trace_segs32_batch"}
+
+
 def _segs_rc(rc):
     """True on success, False when a lane overflows its segment table;
     raises on the other codes of dcstr_trace_segs(_batch)."""
@@ -140,6 +147,8 @@ class NativeControlTracer:
 
         addr_tab/off_tab: the sorted stream table from stream_row_table.
         out_rows/out_mix: C-contiguous uint16 [n, 8]; out_vol: uint8 [n].
+        Raises ValueError on a row id past u16 (a bank of 64Ki rows or
+        more).
         """
         evf, evb, _ = _event_arrays([events])
         rc = self._lib.dcstr_trace_rows(
@@ -148,6 +157,9 @@ class NativeControlTracer:
             _p(out_vol))
         if rc == -3:
             raise KeyError("traced stream address missing from the bank")
+        if rc == -6:
+            raise ValueError("a traced row id does not fit u16: a bank of "
+                             "64Ki rows or more needs the segment trace")
         if rc != 0:
             raise rd.ResetError(f"native trace fault ({rc})")
 
@@ -175,8 +187,9 @@ class NativeControlTracer:
         is fully reset (a fresh decoder's state) and traced on this handle,
         its segments written into row b of the batch arrays.
 
-        out_f0/out_base/out_mixv: C-contiguous uint16 [S, n_ch, E];
-        out_slope: uint8 [S, n_ch, E]; out_vol: uint8 [S, n_frames].
+        out_f0/out_mixv: C-contiguous uint16 [S, n_ch, E]; out_base: the
+        same, uint16 or (the wide wire's) uint32; out_slope: uint8
+        [S, n_ch, E]; out_vol: uint8 [S, n_frames].
         events_list: one {frame: [byte, ...]} dict per session.
         Returns True, or False if any lane overflows E segments.
         """
@@ -185,7 +198,11 @@ class NativeControlTracer:
             raise ValueError(f"{len(events_list)} event dicts and volume "
                              f"{out_vol.shape} for {S} sessions of "
                              f"{n_frames} frames")
-        for a, dt in ((out_f0, np.uint16), (out_base, np.uint16),
+        if out_base.dtype not in _SEGS_BATCH:
+            raise ValueError(f"out_base is {out_base.dtype}: the segment "
+                             "trace writes uint16 or uint32 row ids")
+        entry = getattr(self._lib, _SEGS_BATCH[out_base.dtype])
+        for a, dt in ((out_f0, np.uint16), (out_base, out_base.dtype),
                       (out_slope, np.uint8), (out_mixv, np.uint16)):
             if a.shape != (S, n_ch, E) or a.dtype != dt \
                     or not a.flags.c_contiguous:
@@ -194,7 +211,7 @@ class NativeControlTracer:
         if out_vol.dtype != np.uint8 or not out_vol.flags.c_contiguous:
             raise ValueError("out_vol must be C-contiguous uint8")
         evf, evb, evo = _event_arrays(events_list)
-        return _segs_rc(self._lib.dcstr_trace_segs_batch(
+        return _segs_rc(entry(
             self._h, S, n_frames, _p(evo), _p(evf), _p(evb), _p(addr_tab),
             _p(off_tab), len(addr_tab), n_ch, E, _p(out_f0), _p(out_base),
             _p(out_slope), _p(out_mixv), _p(out_vol)))

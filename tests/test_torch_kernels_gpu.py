@@ -19,7 +19,9 @@ bank rows over the whole u16 range, segment tables of 1 to 255 entries
 with equal and unused entries in 1 to 8 channels, frame counts that are
 not a multiple of 4 and over a thousand sessions, the session6 bank,
 carried overlap states with sessions crossing tiles, and a served batch
-on the card against the CPU; for the
+on the card against the CPU; the wide wire's expansion with rows near
+2^24 in 1, 6 and 8 channels, and a batch of the full eight-chip title's
+sessions (past 64Ki bank rows) against its plain path; for the
 1993 family, bank rows of both kinds over random chain states and scale
 codes in C = 1, 6 and 8 voices, row 0 and all-silent frames, a pool that
 ends inside a frame, the transform-to-PCM kernel at its tile edges with and
@@ -371,7 +373,8 @@ def test_sweep_on_the_card_equals_the_cpu_sweep(dev):
     assert torch.equal(want, got.cpu())
     assert launched == {"decode94_fb": 1, "decode94_bank": 0,
                         "dequant_mix": 0, "dequant_mix_dense": 0,
-                        "segments94": 0, "session_mix94": 0,
+                        "segments94": 0, "segments94_rows32": 0,
+                        "session_mix94": 0,
                         "transform94_planar": 0, "transform94_pcm": 1,
                         "transform94_pcm_carry": 0, "decode93_fb": 0,
                         "transform93_pcm": 0, "transform93_pcm_carry": 0,
@@ -471,6 +474,89 @@ def test_segments94_kernel_on_tied_and_unused_entries(dev, C, E):
         got = kernels.segments94(wire, S, T, C, E)
         torch.cuda.synchronize()
         assert all(torch.equal(w, k) for w, k in zip(want, got)), (S, T)
+
+
+def _wide_tied_wire(S, T, C, E, seed):
+    """A wide control wire (u32 bases) with _tied_wire's entries, its bases
+    over the whole 24-bit range and most near 2^24 (the largest, 2^24 - 1,
+    in every lane's first entry of session 0)."""
+    rng = np.random.default_rng(seed)
+    f0 = np.full((S, C, E), 0xFFFF, np.int64)
+    n = rng.integers(1, E + 1, size=(S, C))
+    n[rng.random((S, C)) < 0.2] = 1
+    for s in range(S):
+        for c in range(C):
+            k = int(n[s, c])
+            f0[s, c, :k] = np.sort(rng.integers(0, T, size=k))
+            if rng.random() < 0.7:
+                f0[s, c, 0] = 0
+    base = rng.integers((1 << 24) - (1 << 17), 1 << 24, (S, C, E))
+    low = rng.random((S, C, E)) < 0.3
+    base[low] = rng.integers(0, 1 << 24, int(low.sum()))
+    base[0, :, 0] = (1 << 24) - 1
+    comp = dict(f0=f0.astype(np.uint16), base=base.astype(np.uint32),
+                slope=rng.integers(0, 256, (S, C, E)).astype(np.uint8),
+                mixv=rng.integers(0, 1 << 16, (S, C, E)).astype(np.uint16))
+    vol = rng.integers(0, 256, (S, T)).astype(np.uint8)
+    return romplay.pack_controls_wire(comp, vol)
+
+
+@pytest.mark.parametrize("C", [1, 6, 8])
+@pytest.mark.parametrize("E", [1, 32, 255])
+def test_segments94_rows32_kernel_on_rows_near_2_24(dev, C, E):
+    for S, T in ((1, 1), (1, 1003), (3, 7), (1001, 13), (4, 256)):
+        wire = torch.tensor(_wide_tied_wire(S, T, C, E, 7 * E + C + S),
+                            device=dev)
+        before = kernels.LAUNCHES["segments94_rows32"]
+        want = romplay.segments94_plain(wire, S, T, C, E)
+        got = kernels.segments94(wire, S, T, C, E)
+        torch.cuda.synchronize()
+        assert kernels.LAUNCHES["segments94_rows32"] == before + 1
+        assert all(torch.equal(w, k) for w, k in zip(want, got)), (S, T)
+    with pytest.raises(ValueError, match="shape"):
+        kernels.segments94(wire[:-1], S, T, C, E)
+
+
+def _title_batch(n_tracks, S, T):
+    """S sessions of a title whose tracks 1..n_tracks play on channel
+    (track - 1) mod 6: each voice starts a track of its channel at two
+    frames, the title's last tracks among them, at a master volume of its
+    own."""
+    per = n_tracks // 6
+    events = []
+    for s in range(S):
+        ev = {0: [0x55, 0xAA, 0x48 + s, (0x48 + s) ^ 0xFF]}
+        for v in range(6):
+            for k, f in enumerate(((s * 7 + v * 3) % 40, 150 + s)):
+                j = per - 1 - (5 * s + 3 * k + v) % per
+                track = 1 + v + 6 * j
+                ev.setdefault(f, []).extend([track >> 8, track & 0xFF])
+        events.append(ev)
+    return events
+
+
+def test_session_server_on_a_full_title_equals_its_plain_path(dev):
+    # the eight-chip title's bank is past 64Ki rows: the wide wire, one
+    # segments94_rows32 launch a batch; rom94.zip's stays on the u16 wire
+    for name, wide in (("os94full/rom94full.zip", True), ("rom94.zip", False)):
+        rs, _ = zipload.load_zip_file(os.path.join(REPO, "dcsbench", "data",
+                                                   name))
+        assert rs.check() == 1
+        S, T = 8, 300
+        events = _title_batch(rs.n_tracks - 1, S, T)
+        bank = romplay.build_rom_bank(rs)
+        before = dict(kernels.LAUNCHES)
+        with romplay.SessionServer(rs, S, T, n_ch=6, bank=bank) as srv:
+            assert srv.wide == wide
+            got = srv.serve_one(events)
+        launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
+        with romplay.SessionServer(rs, S, T, n_ch=6, bank=bank,
+                                   plain=True) as srv:
+            want = srv.serve_one(events)
+        assert np.array_equal(want, got) and np.abs(got).max() > 0
+        assert {k: v for k, v in launched.items() if v} == {
+            ("segments94_rows32" if wide else "segments94"): 1,
+            "session_mix94": 1, "transform94_pcm": 1}
 
 
 @pytest.mark.parametrize("n", [1, T - 1, T + 1, 5 * T + 3])
@@ -658,7 +744,8 @@ def test_session_server_on_the_card_equals_the_cpu_server(dev):
     # a served batch starts each session from a zero state: no carry
     assert launched == {"decode94_fb": 0, "decode94_bank": 1,
                         "dequant_mix": 0, "dequant_mix_dense": 0,
-                        "segments94": 3, "session_mix94": 3,
+                        "segments94": 3, "segments94_rows32": 0,
+                        "session_mix94": 3,
                         "transform94_planar": 0, "transform94_pcm": 3,
                         "transform94_pcm_carry": 0, "decode93_fb": 0,
                         "transform93_pcm": 0, "transform93_pcm_carry": 0,
