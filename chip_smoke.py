@@ -73,20 +73,23 @@ non-zero):
      dcsexplorer_tpu_torch/data/session93a.zip (OS93a, both row kinds),
      build the bank, serve one batch of 320 sessions x 1,000 frames x 6
      voices through SessionServer and play session 0 through play_session;
-     the launch counters of segments94, decode93_pcm and decode93_pcm_carry
-     must move and those of decode93_fb, transform93_pcm and
+     the launch counters of decode93_bank, segments94, decode93_pcm and
+     decode93_pcm_carry must move and those of decode93_fb, transform93_pcm and
      transform93_pcm_carry must not; the batch equals the plain-version
      server, session 0 play_session's, sessions 0 and 319 the scalar
      decoder over 250 frames, and no session is silent
  12. decode93_pcm.cu's closed-form normalize against the 31-step loop on
      all 2^32 inputs; segments94 on the session93a wire, and the 1993
      kernels, against their plain versions at the paths' shapes, timed
-     beside their bounds as in phase 3: decode93_pcm
-     on both sweeps, on the session batch (C = 6, both kinds) and on the
-     batch with a random carried state (decode93_pcm_carry), each beside
-     the sum of the pair it replaced, decode93_fb + transform93_pcm (on no
-     path), held and timed at the same shapes; decode93_pcm on the batch's
-     first 1, 2 and 4 voices, and its time a voice; the stage spans of the
+     beside their bounds as in phase 3: decode93_pcm's columns' instance
+     on both sweeps; decode93_bank on the bank's columns; decode93_pcm's
+     session instance on the session batch (C = 6, both kinds) and on the
+     batch with a random carried state (decode93_pcm_carry), its plain
+     decode equal to the columns'; each beside the sum of the pair it
+     replaced, decode93_fb + transform93_pcm (on no path), held and timed
+     at the same shapes; the session instance's time a voice, on the
+     batch's first 1, 2, 4 and 6 voices, and on batches of 93 rows alone
+     and of Type-1 rows alone at 1 and 6 voices; the stage spans of the
      dec93b sweep and of one session93a batch (segments94's kernel time
      beside its span); the batch's device time,
      serve() x realtime over 8 batches with every gap and latency as in
@@ -1050,7 +1053,11 @@ def main():
         "decode93_pcm": ("decode93_pcm.cu",
                          "dcsexplorer_tpu/ops/decode93.py:197"),
         "decode93_pcm_carry": ("decode93_pcm.cu",
-                               "dcsexplorer_tpu/ops/transform.py:586")})
+                               "dcsexplorer_tpu/ops/transform.py:586"),
+        "decode93_bank": ("decode93_bank.cu",
+                          "none: the mix-independent part of "
+                          "dcsexplorer_tpu/models/pipeline.py:244 "
+                          "(device_decode93), moved to set-up")})
     sweeps93 = {}
     for name, files, t1 in (
             ("dec93b", ("music_a.dcs93b", "music_b.dcs93a"), False),
@@ -1162,12 +1169,14 @@ def main():
     torch.cuda.synchronize()
     s93_launches = dict(kernels.LAUNCHES)
     if not all(s93_launches[k] > 0 for k in (
-            "segments94", "decode93_pcm", "decode93_pcm_carry")) or any(
+            "segments94", "decode93_pcm", "decode93_pcm_carry",
+            "decode93_bank")) or any(
             s93_launches[k] for k in ("decode93_fb", "transform93_pcm",
                                       "transform93_pcm_carry",
                                       "segments94_rows32")):
         raise AssertionError(f"the 1993 session path did not run through "
-                             f"segments94 and decode93_pcm: {s93_launches}")
+                             f"decode93_bank, segments94 and decode93_pcm: "
+                             f"{s93_launches}")
     if got93.shape != (S, T * 240) or got93.dtype != np.int16:
         raise AssertionError(f"session93a batch {got93.shape} {got93.dtype}")
     with romplay.SessionServer(rs93, S, T, n_ch=C, seg_e=SEG_E, bank=bank93,
@@ -1207,7 +1216,7 @@ def main():
           f"rows ({int((kinds93 == d93.ROW_93).sum())} of the 93 bands, "
           f"{int((kinds93 == d93.ROW_93A).sum())} OS93a Type-1; pool "
           f"{bank93.cols['pool_u8'].numel()} B) built in {bank93_s:.3f} s "
-          f"(load + prescan + upload); one batch of {S} sessions x {T} "
+          f"(load + prescan + decode93_bank); one batch of {S} sessions x {T} "
           f"frames x {C} voices through SessionServer and session 0 through "
           f"play_session, launches {s93_launches}; PCM of all {S} sessions "
           f"bit-exact with the plain batch on the card, none silent; session "
@@ -1279,21 +1288,21 @@ def main():
             + (0 if ov0 is None else ov0.numel() * 4 * 2), 15000 * n,
             phase=12, shape=shape)
 
-    # decode93_pcm: the decode's bytes and operations, the volume shift and
-    # the stream id, 960 B of PCM a frame (and the carried state in and
-    # out), plus the transform's 15,000 operations a frame
-    def check_decode93_pcm(cols, rows, mix, vol, fsid, ov0=None, shape=None):
-        n_bytes, n_ops = decode93_cost(cols, rows, mix)
+    # decode93_pcm's columns' instance (the flat sweep): the decode's bytes
+    # and operations, the volume shift and the stream id, 960 B of PCM a
+    # frame, plus the transform's 15,000 operations a frame
+    def check_decode93_pcm(cols, shape=None):
+        mix, vol, fsid = cols["mix"], cols["vol"], cols["sid"]
+        n_bytes, n_ops = decode93_cost(cols, None, mix)
         n = mix.shape[0]
         return check(
-            "decode93_pcm" if ov0 is None else "decode93_pcm_carry",
-            lambda: d93.decode93_pcm_plain(cols, rows, mix, vol, fsid, tabs93,
-                                           ov0),
+            "decode93_pcm",
+            lambda: d93.decode93_pcm_plain(cols, None, mix, vol, fsid,
+                                           tabs93),
             lambda: kernels.decode93_pcm(*(cols[k] for k in d93.COLUMNS),
-                                         rows, mix, vol, fsid, tabs93, ov0),
-            1, 20, n_bytes + n * (4 + 4 + 240 * 4)
-            + (0 if ov0 is None else ov0.numel() * 4 * 2),
-            n_ops + 15000 * n, phase=12, shape=shape)
+                                         mix, vol, fsid, tabs93),
+            1, 20, n_bytes + n * (4 + 4 + 240 * 4), n_ops + 15000 * n,
+            phase=12, shape=shape)
 
     def against_pair(shape, fused, dec, tra):
         print(f"phase 12 {shape}: decode93_pcm {times[fused]:.4f} ms against "
@@ -1305,20 +1314,21 @@ def main():
     fb93 = check_decode93(c93, None, c93["mix"])
     check_transform93(fb93, c93["vol"], c93["sid"])
     del fb93
-    check_decode93_pcm(c93, None, c93["mix"], c93["vol"], c93["sid"])
+    check_decode93_pcm(c93)
     against_pair("dec93b", "decode93_pcm", "decode93_fb", "transform93_pcm")
     ct1 = sweeps93["dec93a_t1"]["cols"]
     shape = "dec93a_t1, OS93a Type-1"
     fb93 = check_decode93(ct1, None, ct1["mix"], shape=shape)
     check_transform93(fb93, ct1["vol"], ct1["sid"], shape=shape)
     del fb93
-    check_decode93_pcm(ct1, None, ct1["mix"], ct1["vol"], ct1["sid"],
-                       shape=shape)
+    check_decode93_pcm(ct1, shape=shape)
     against_pair(shape, f"decode93_pcm ({shape})", f"decode93_fb ({shape})",
                  f"transform93_pcm ({shape})")
 
     # the session batch's shapes: C = 6 voices of both row kinds, without
-    # and with a random carried state
+    # and with a random carried state.  Its yardstick, the pair decode93_fb
+    # + transform93_pcm, reads the bank's columns (kept on the host) on the
+    # card
     wire_np93, E93 = srv93.prepare(batch)
     wire93 = torch.tensor(wire_np93, device=dev)
     check("segments94", lambda: romplay.segments94_plain(wire93, S, T, C, E93),
@@ -1326,7 +1336,8 @@ def main():
           wire93.numel() + S * T * C * 8 + S * T * 4, S * T * C * 3,
           phase=12, shape="session93a wire")
     rows93, mixes93, vols93 = romplay.segments94(wire93, S, T, C, E93)
-    bcols = dict(srv93.decoder.named_buffers())
+    bcols = {k: v.to(dev) for k, v in bank93.cols.items()}
+    sbank = bank93.bank93
     bkind = bcols["kind_u8"][rows93.long()]
     mixed = int(((bkind == d93.ROW_93).any(1)
                  & (bkind == d93.ROW_93A).any(1)).sum())
@@ -1338,25 +1349,90 @@ def main():
                          dtype=torch.int32)
     check_transform93(fbs93, vols93, sid, ov93)
     del fbs93
-    check_decode93_pcm(bcols, rows93, mixes93, vols93, sid, shape=shape)
-    against_pair(shape, f"decode93_pcm ({shape})", f"decode93_fb ({shape})",
-                 f"transform93_pcm ({shape})")
-    # the voice loop's slope: the batch cut to its first c voices
-    by_voices = {C: times[f"decode93_pcm ({shape})"]}
+    # the session bank: decode93_bank on the bank's columns, then the
+    # session instance on the batch (the path's), held against the
+    # columns' plain decode too.  The bank's bytes: its columns and pool
+    # read, 640 B a row written; ~12 integer operations a 93 cell and ~16 a
+    # Type-1 input, as the decode's.  The session instance reads each bank
+    # row once (640 B), the rows and mixes, and counts ~6 operations a
+    # word a voice (sign extension, the mix multiply-add, the shift, the
+    # fold, the tie test) and the transform's 15,000 a frame
+    R93 = bcols["frame_word"].shape[0]
+    cells, ins = decode93_work(bcols, None)
+    check("decode93_bank",
+          lambda: tuple(d93.decode93_bank_plain(bcols, tabs93).values()),
+          lambda: kernels.decode93_bank(*(bcols[k] for k in d93.COLUMNS),
+                                        tabs93["pair"], tabs93["inputs"]),
+          1, 20, R93 * (181 + d93.BANK_WORDS * 4 + 1)
+          + bcols["pool_u8"].numel() + bcols["band_tab"].numel() * 4,
+          12 * cells + 16 * ins, phase=12, words=True)
+
+    def check_session93(rows, mix, vol, fsid, ov0=None, shape=None):
+        n, c = mix.shape
+        return check(
+            "decode93_pcm" if ov0 is None else "decode93_pcm_carry",
+            lambda: d93.session93_pcm_plain(sbank, rows, mix, vol, fsid,
+                                            tabs93, ov0),
+            lambda: kernels.decode93_pcm_bank(sbank["words93"],
+                                              sbank["kind93"], rows, mix,
+                                              vol, fsid, tabs93, ov0),
+            1, 20, R93 * (d93.BANK_WORDS * 4 + 1) + mix.numel() * 8
+            + n * (4 + 4 + 240 * 4)
+            + (0 if ov0 is None else ov0.numel() * 4 * 2),
+            6 * 256 * n * c + 15000 * n, phase=12,
+            shape=None if shape is None else f"session bank, {shape}")
+
+    want_bank = check_session93(rows93, mixes93, vols93, sid, shape=shape)
+    want_cols = d93.decode93_pcm_plain(bcols, rows93, mixes93, vols93, sid,
+                                       tabs93)
+    if not torch.equal(want_bank, want_cols):
+        raise AssertionError("session93a batch: the session bank's plain "
+                             "decode != the columns'")
+    del want_bank, want_cols
+    against_pair(shape, f"decode93_pcm (session bank, {shape})",
+                 f"decode93_fb ({shape})", f"transform93_pcm ({shape})")
+    # the voice loop's slope in the session instance: the batch cut to its
+    # first c voices, and batches whose every voice loops the rows of one
+    # stream of one kind (the ROM's first 93 stream, its first Type-1
+    # stream), at C = 1 and C
+    by_voices = {C: times[f"decode93_pcm (session bank, {shape})"]}
     for c in (1, 2, 4):
         cut = f"session93a batch, C = {c}"
-        check_decode93_pcm(bcols, rows93[:, :c].contiguous(),
-                           mixes93[:, :c].contiguous(), vols93, sid,
-                           shape=cut)
-        by_voices[c] = times[f"decode93_pcm ({cut})"]
-    ns = {c: ms * 1e6 / rows93.shape[0] for c, ms in by_voices.items()}
-    print("phase 12 decode93_pcm by voices (the batch's first C; ns a "
-          "frame): " + ", ".join(f"C = {c} {ns[c]:.3f}" for c in sorted(ns))
-          + f"; a voice, C = 1 to {C}: {(ns[C] - ns[1]) / (C - 1):.3f}")
-    check_decode93_pcm(bcols, rows93, mixes93, vols93, sid, ov93)
+        check_session93(rows93[:, :c].contiguous(),
+                        mixes93[:, :c].contiguous(), vols93, sid, shape=cut)
+        by_voices[c] = times[f"decode93_pcm (session bank, {cut})"]
+    slopes = {"the batch's first C": by_voices}
+    kind_row = bank93.cols["kind_u8"].numpy()
+    starts = sorted(bank93.offsets.values()) + [len(kind_row)]
+    t_idx = torch.arange(S * T, device=dev) - sid.long() * T
+    for kind, label in ((d93.ROW_93, "93 rows"),
+                        (d93.ROW_93A, "Type-1 rows")):
+        a, b = next((a, b) for a, b in zip(starts, starts[1:])
+                    if (kind_row[a:b] == kind).all())
+        rows_k = torch.stack(
+            [a + (t_idx + 97 * sid.long() + 131 * v) % (b - a)
+             for v in range(C)], 1).int()
+        slopes[label] = {}
+        for c in (1, C):
+            cut = f"{label} alone, C = {c}"
+            check_session93(rows_k[:, :c].contiguous(),
+                            mixes93[:, :c].contiguous(), vols93, sid,
+                            shape=cut)
+            slopes[label][c] = times[f"decode93_pcm (session bank, {cut})"]
+    for label, t in slopes.items():
+        ns = {c: ms * 1e6 / rows93.shape[0] for c, ms in t.items()}
+        print(f"phase 12 decode93_pcm's session instance by voices, {label} "
+              f"(ns a frame): "
+              + ", ".join(f"C = {c} {ns[c]:.4f}" for c in sorted(ns))
+              + f"; a voice, C = 1 to {C}: {(ns[C] - ns[1]) / (C - 1):.4f}")
+    # the path's instances, unlabelled: the kernels line's decode93_pcm_carry
+    # is the session instance with the carried state, which play_session
+    # launches (its decode93_pcm is the dec93b sweep's columns' instance)
+    check_session93(rows93, mixes93, vols93, sid, ov93)
     against_pair("session93a batch with a random carried state",
                  "decode93_pcm_carry", f"decode93_fb ({shape})",
                  "transform93_pcm_carry")
+    del bcols
     del rows93, mixes93, vols93
     for k, r in results.items():        # phase 10's launches and phase 11's
         r["launches"] += f93_launches[k] + s93_launches[k]
@@ -1382,7 +1458,7 @@ def main():
 
     out, sweep_spans = spans_of([
         ("decode93_pcm", lambda _: d93.decode93_pcm(
-            c93, None, c93["mix"], c93["vol"], c93["sid"], tabs93))])
+            c93, c93["mix"], c93["vol"], c93["sid"], tabs93))])
     if _max_abs_err(out, sweeps93["dec93b"]["pcm"]) != 0:
         raise AssertionError("dec93b stage-span run != sweep PCM")
     ctl = {}
@@ -1394,8 +1470,8 @@ def main():
 
     out, batch_spans = spans_of([
         ("segments94", expand),
-        ("decode93_pcm", lambda _: d93.decode93_pcm(
-            bcols, ctl["rows"], ctl["mix"], ctl["vol"], sid, tabs93)),
+        ("decode93_pcm", lambda _: d93.session93_pcm(
+            sbank, ctl["rows"], ctl["mix"], ctl["vol"], sid, tabs93)),
         ("int16", pipeline.to_int16)])
     if not np.array_equal(out.reshape(S, -1).cpu().numpy(), got93):
         raise AssertionError("session93a span run != served batch")

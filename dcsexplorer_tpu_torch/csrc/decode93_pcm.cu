@@ -1,14 +1,28 @@
 // 1993-family decode, inverse transform and overlap resolve in one kernel:
-// bank columns in, PCM out.  It computes exactly
+// bank rows in, PCM out.  It computes exactly
 // ops/decode93.decode93_pcm_plain, that is
 // transform93_pcm_plain(decode93_fb_plain(cols, rows, mix, tabs), vol, sid,
-// tabs, overlap0): each output frame starts from silence and folds its
+// tabs, overlap0): its columns' instance with rows None and no overlap0,
+// its session instance session93_pcm_plain, which equals it on the bank of
+// the same columns.  Each output frame starts from silence and folds its
 // voices (bank rows) in channel order, each through the 93 body or the
 // OS93a Type-1 body of its row's kind; then the slot-0 magnitude fix-up, the
 // 256 -> 512 expansion, seven radix-2 stages with wrapping arithmetic, the
 // volume shift, the bit-reversed collection and the overlap blend.  The
 // frame buffer lives only in shared memory, and the planes only in
 // registers and shared memory.
+//
+// Two instances, chosen by what the caller gives.  The columns' instance
+// (rows null: the flat sweep, each row decoded once, one voice a frame and
+// no carried state) decodes each voice from its row's bitstream and
+// prescan columns.  The session instance
+// (rows given) folds each voice from the session bank (decode93_bank.cuh):
+// the words of each row's decode that do not depend on the mix, decoded
+// once per ROM by decode93_bank.cu, so that a voice-frame is two 8-byte
+// loads a lane and a few multiply-adds a word instead of a bitstream
+// decode (a session plays each row thousands of times a batch).  The two
+// voice steps share no code; the transform, the collection, the tile, the
+// halo and the overlap blend are the same.
 //
 // Replaces, in the JAX package: decode93_frames
 // (dcsexplorer_tpu/ops/decode93.py:197-310) and decode93a_frames
@@ -20,11 +34,13 @@
 // transform93_pcm.cu on every 1993 path (both stay, on no path).
 //
 // What bounds it on the H100: integer operations, and in practice issue
-// slots.  Per frame it reads each voice's row of columns (~180 B) and a few
-// hundred bytes of bitstream, and writes 240 PCM words (960 B); a six-voice
-// session frame needs ~3,000 integer operations to decode and ~15,000 to
-// transform, so the operations over 33.5 TOP/s outweigh the bytes over
-// 3.35 TB/s.  Each operation of the 1.15 fixed point costs several
+// slots.  Per frame the columns' instance reads each voice's row of
+// columns (~180 B) and a few hundred bytes of bitstream, the session
+// instance 512-640 B of bank words a voice (from L2: a ROM's bank is a few
+// MB), and both write 240 PCM words (960 B); a six-voice session frame
+// needed ~3,000 integer operations to decode from the bitstream and needs
+// ~15,000 to transform, so the operations over 33.5 TOP/s outweigh the
+// bytes over 3.35 TB/s.  Each operation of the 1.15 fixed point costs several
 // instructions (sign extension, the MAC's rounding quirk: ~20 for a
 // butterfly), and nothing here maps onto the tensor cores, so the design
 // cuts instructions and keeps 32 warps an SM (64 registers, no spills,
@@ -43,6 +59,7 @@
 //   above are dropped (a test on the CPU holds that premise).  It is the
 //   first of the warp's two exchange buffers; the second (xb) holds a 93
 //   voice's partial and its band list during the decode.
+// The columns' instance:
 // - Voice headers: lanes 0..C-1 hold the frame's rows, mixes, row kinds,
 //   frame words and row streams, loaded during the previous frame's
 //   transform; each voice's band columns (kw, bit_rel, prv, code, its
@@ -82,6 +99,12 @@
 // - Type-1 body: lane b < 18 holds band b's width, scale and bit offset
 //   and hands them over by shuffles; the pair table sits in shared memory
 //   as 1,024 words of two entries, one load an input.
+// The session instance: lanes 0..C-1 hold the frame's rows, mixes and
+// bank kinds; each voice's bank words load while the voice before it
+// folds; lane l's 8 words stay in registers over the voices and go to the
+// frame buffer once (the fold's formulas: decode93_bank.cuh and the "session
+// bank" section below).
+// Both:
 // - Transform in registers: 8 complex values a lane, held mod 2^16 without
 //   reduction (only multiplied values are sign-extended).  Plane index e =
 //   b7..b0; the stages run on bits 6..0 in order and never mix bit 7.  Step
@@ -110,7 +133,7 @@
 // - Carried state (the session path; overlap_resolve93): with overlap0
 //   [G, 16], a run's first frame blends with overlap0[sid] instead of
 //   zeros, and the last frame of each run writes its tail to last_ov[sid].
-//   The carry is a template argument.
+//   The carry is a template argument of the session instance.
 //
 // Semantics kept exactly (and tested against the plain version): sign
 // extension (raw - ((raw >> (w-1)) << w)); the chains mod 2^16; the repeat
@@ -121,47 +144,29 @@
 // the collisions re[192] = yr - xr and im[64] = yi - xi; the MAC tie rule
 // on the second product; volume shifts clamp to 31; the blend in uint32;
 // the carried words are the plain tail, not the blended output; a kind,
-// width, row, stream or group id out of range traps.
+// width, row, stream or group id out of range traps (a bank kind above
+// BANK_93R too).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 #include "dcs_fixmath.cuh"
-#include "decode94_walk.cuh"      // dcs94::pool_word
+#include "decode93_bank.cuh"      // the columns, their fields, the bank
 
 namespace {
+
+using namespace dcs93;
 
 constexpr int kWarps = 8;
 constexpr int kThreads = 32 * kWarps;
 constexpr int kTile = 63;               // frames per block (kernels.py's
                                         // DECODE93_PCM_TILE): with the halo,
                                         // 8 frames a warp
-constexpr int kFbWords = 256;           // the words the transform reads
 constexpr int kPcmWords = 240;
-constexpr int kCols = 18;               // row width of kw_u8, bit_rel, code_u8
-constexpr int kBands93a = 18;
-constexpr int kInputs93a = 127;
 constexpr int kPairLen = 2048;
-constexpr int kMaxWidth93 = 24, kMaxWidth93a = 9;
 constexpr unsigned kFull = 0xFFFFFFFFu;
-enum { K_NONE = 0, K_DATA0 = 1, K_DATA1 = 2, K_DATA2 = 3, K_REPEAT = 4,
-       K_RAMP = 5 };
-enum { ROW_SILENT = 0, ROW_93 = 1, ROW_93A = 2 };
 static_assert(kThreads >= 4 * kTile, "the blend takes 4 threads a frame");
 static_assert((kTile + 1) % kWarps == 0, "every warp takes as many slots");
-
-struct Cols {
-    const uint8_t *pool;
-    long long pool_len;
-    const uint32_t *pool32;             // the pool's whole 32-bit words
-    int n_words;
-    const int *frame_word, *sid;
-    const uint8_t *kind, *kw;
-    const int *bit_rel, *prv;
-    const uint8_t *code;
-    const int *band_tab;     // [n_streams, 16, 8]
-    int n_streams;
-};
 
 struct Tables {
     int2 cs[128];                       // {s16(cos[g]), s16(sin[g])}
@@ -179,31 +184,6 @@ struct Shared {
     int tails[kTile + 1][16];           // [0]: the halo frame's
     Tables tb;
 };
-
-// low 16 bits, sign-extended
-__device__ __forceinline__ int sx16(int x) { return (int)(short)x; }
-
-// big-endian pool word idx (bytes 4 idx .. 4 idx + 3); $FF past the end
-__device__ __forceinline__ uint32_t word_be(const Cols &c, int idx) {
-    if ((unsigned)idx < (unsigned)c.n_words)
-        return __byte_perm(__ldg(c.pool32 + idx), 0, 0x0123);
-    return dcs94::pool_word(c.pool, c.pool_len, 4LL * idx);
-}
-
-// bits [32 fw + rel, 32 fw + rel + w) of the pool, most significant first
-// (rel >= 0, 1 <= w <= 24); kFast: the caller has checked that the two
-// words lie in the pool
-template <bool kFast = false>
-__device__ __forceinline__ uint32_t field(const Cols &c, int fw, int rel,
-                                          int w) {
-    const int idx = fw + (rel >> 5);
-    const uint32_t hi = kFast ? __byte_perm(__ldg(c.pool32 + idx), 0, 0x0123)
-                              : word_be(c, idx);
-    const uint32_t lo = kFast
-                            ? __byte_perm(__ldg(c.pool32 + idx + 1), 0, 0x0123)
-                            : word_be(c, idx + 1);
-    return __funnelshift_l(lo, hi, rel & 31) >> (32 - w);
-}
 
 // ---------------------------------------------------------------- decode
 
@@ -536,6 +516,111 @@ __device__ __forceinline__ void voice93a(const Cols &c, const Tables &tb,
     own_store(fb, lane, w);
 }
 
+// ------------------------------------------------------ the session bank
+// The session instance (rows given) folds each voice from its row of the
+// session bank (decode93_bank.cuh), built once per ROM by decode93_bank.cu:
+// lane l loads its 8 words' bank halfwords, and the row's side word l where
+// its kind needs it, a voice ahead; mixes them with m into deltas; and folds
+// the deltas into its words, which stay in registers from the first voice
+// to the last.  No partial goes through shared memory.
+
+// a frame's controls: lane v < C holds voice v's row, mix and bank kind
+__device__ __forceinline__ Ctl load_ctl_bank(const uint8_t *__restrict__ kind93,
+                                             const int *__restrict__ rows,
+                                             const int *__restrict__ mix,
+                                             int f, int n_ch, int n_rows,
+                                             int lane) {
+    Ctl t{0, 0, BANK_SILENT, 0, 0};
+    if (lane < n_ch) {
+        const size_t at = (size_t)f * n_ch + lane;
+        t.r = rows[at];
+        if ((unsigned)t.r >= (unsigned)n_rows) __trap();
+        t.m = mix[at] & dcs::kM16;
+        t.kind = kind93[t.r];
+        if (t.kind > BANK_93R) __trap();
+    }
+    return t;
+}
+
+// one voice's bank words, as lane l holds them
+struct BankVoice {
+    int kind, m;
+    uint2 a, b;                         // words 4l..4l+3, 128+4l..128+4l+3
+    uint32_t side;                      // side word l (BANK_93R, BANK_93A)
+};
+
+// voice v's bank words from the frame's controls; every lane calls this
+__device__ __forceinline__ BankVoice load_bank_voice(
+        const int *__restrict__ words, const Ctl &t, int v, int lane) {
+    BankVoice h;
+    const int vr = __shfl_sync(kFull, t.r, v);
+    h.kind = __shfl_sync(kFull, t.kind, v);
+    h.m = __shfl_sync(kFull, t.m, v);
+    h.a = h.b = make_uint2(0u, 0u);
+    h.side = 0u;
+    const int *row = words + (size_t)vr * kBankWords;
+    if (h.kind != BANK_SILENT) {
+        const uint2 *row2 = reinterpret_cast<const uint2 *>(row);
+        h.a = __ldg(row2 + lane);
+        h.b = __ldg(row2 + 32 + lane);
+    }
+    if (h.kind == BANK_93R || h.kind == BANK_93A)
+        h.side = (uint32_t)__ldg(row + kBankSide + lane);
+    return h;
+}
+
+// a 93 voice folded into the lane's words: word k's delta is (lo' + P) >>
+// 16 with P = sx16(lo) * m (kRep: lo' = lo + i * P's low half, i the word's
+// repeat index; else lo' = lo); then lane 0 applies the first-sample fix-up
+// to word 0 and word 1 keeps its value (reference :2608-2611):
+// w0 <- sat16(sat16(sx16(w1 + d1) - sx16(w1)) + sx16(w0))
+template <bool kRep>
+__device__ __forceinline__ void fold93_bank(int (&w)[8], const BankVoice &v,
+                                            int lane) {
+    const uint32_t h[4] = {v.a.x, v.a.y, v.b.x, v.b.y};
+    int d[8];
+#pragma unroll
+    for (int k = 0; k < 8; ++k) {
+        const uint32_t two = h[k >> 1];
+        int lo = (int)(k & 1 ? two >> 16 : two & 0xFFFFu);
+        const int p = (k & 1 ? (int)two >> 16 : sx16((int)two)) * v.m;
+        if (kRep)
+            lo = (lo + (int)(v.side >> 4 * k & 15u) * (p & dcs::kM16)) &
+                 dcs::kM16;
+        d[k] = (lo + p) >> 16;
+    }
+    const int delta = dcs::sat16(sx16(w[1] + d[1]) - sx16(w[1]));
+    const int fix = dcs::sat16(sx16(delta) + sx16(w[0]));
+    w[0] = lane == 0 ? fix : w[0] + d[0];
+    w[1] += lane == 0 ? 0 : d[1];
+#pragma unroll
+    for (int k = 2; k < 8; ++k) w[k] += d[k];
+}
+
+// a Type-1 voice folded into the lane's words: lane b < 18 computes band
+// b's eff from its scale (side word b) and m, and each of the lane's four
+// inputs takes its band's by a shuffle (bands: their bands, a byte each).
+// Word k's write is w + (p8 >> 16) with p8 = pk * 2 * eff + $8000 mod 2^32,
+// and bit 0 of w cleared where p8's low half is 0 (the MAC's tie rule)
+__device__ __forceinline__ void fold93a_bank(int (&w)[8], const BankVoice &v,
+                                             uint32_t bands) {
+    const int eff = sx16((int)((v.side * (uint32_t)v.m) >> 15));
+    const uint32_t h[4] = {v.a.x, v.a.y, v.b.x, v.b.y};
+#pragma unroll
+    for (int t = 0; t < 4; ++t) {
+        const int beff = __shfl_sync(kFull, eff, (int)(bands >> 8 * t) & 31);
+        const uint32_t b2 = (uint32_t)(2 * beff);
+#pragma unroll
+        for (int k = 0; k < 2; ++k) {
+            const int pk = k ? (int)h[t] >> 16 : sx16((int)h[t]);
+            const uint32_t p8 = (uint32_t)pk * b2 + 0x8000u;
+            int &x = w[2 * t + k];
+            x += (int)(p8 >> 16);
+            if ((p8 & 0xFFFFu) == 0u) x &= ~1;
+        }
+    }
+}
+
 // ------------------------------------------------------------- transform
 
 // MR1 of round((s16(a) * s16(b)) << 1) with the MAC's tie rule; the whole
@@ -678,7 +763,10 @@ __device__ __forceinline__ void get(const int *buf, int (&r)[8], int (&m)[8],
     }
 }
 
-template <bool kCarry>
+// kBank: the session instance (rows given), folding each voice from the
+// session bank (words, kind93); else the columns' instance, decoding each
+// voice's bitstream
+template <bool kCarry, bool kBank>
 __global__ void __launch_bounds__(kThreads, 4)
 decode93_pcm_kernel(Cols c, const int *__restrict__ rows,
                     const int *__restrict__ mix, const int *__restrict__ vol,
@@ -691,11 +779,13 @@ decode93_pcm_kernel(Cols c, const int *__restrict__ rows,
                     const int *__restrict__ overlap0,
                     int *__restrict__ last_ov, int n_groups,
                     int *__restrict__ pcm, int n_frames, int n_ch,
-                    int n_rows) {
+                    int n_rows, const int *__restrict__ words,
+                    const uint8_t *__restrict__ kind93) {
     __shared__ __align__(16) Shared sh;
     Tables &tb = sh.tb;
-    for (int i = threadIdx.x; i < kPairLen; i += kThreads) {
-        if (i < kPairLen / 2)
+    // the pair table only where the bitstream is decoded
+    for (int i = threadIdx.x; i < (kBank ? 128 : kPairLen); i += kThreads) {
+        if (!kBank && i < kPairLen / 2)
             tb.pair2[i] = ((uint32_t)__ldg(pair + 2 * i) & 0xFFFFu) |
                           (uint32_t)__ldg(pair + 2 * i + 1) << 16;
         if (i < 128)
@@ -723,6 +813,17 @@ decode93_pcm_kernel(Cols c, const int *__restrict__ rows,
 
     const int lane = threadIdx.x & 31;
     const int warp = threadIdx.x >> 5;
+    // the session instance: the bands of the lane's four Type-1 inputs
+    // (2l, 2l+1, 64+2l, 65+2l; input 127, which no band has, takes lane
+    // 31's eff, which is 0), a byte each
+    uint32_t bands = 0;
+    if (kBank) {
+        const uint32_t *map2 = reinterpret_cast<const uint32_t *>(tb.in_map);
+        const uint32_t jm2[2] = {map2[lane], map2[32 + lane]};
+#pragma unroll
+        for (int t = 0; t < 4; ++t)
+            bands |= (jm2[t >> 1] >> 16 * (t & 1) & 31u) << 8 * t;
+    }
     const int f0 = blockIdx.x * kTile;
     const bool halo = f0 > 0 && fsid[f0 - 1] == fsid[f0];
     int *fb = sh.buf[warp][0];
@@ -734,38 +835,66 @@ decode93_pcm_kernel(Cols c, const int *__restrict__ rows,
     if (s == 0 && !halo) s += kWarps;
     Ctl ctl{0, 0, ROW_SILENT, 0, 0};
     Voice nxt{};
+    BankVoice nxt_bank{};
     if (s <= kTile && f0 + s - 1 < n_frames) {
-        ctl = load_ctl(c, rows, mix, f0 + s - 1, n_ch, n_rows, lane);
-        nxt = load_voice(c, ctl, 0, lane);
+        if (kBank) {
+            ctl = load_ctl_bank(kind93, rows, mix, f0 + s - 1, n_ch, n_rows,
+                                lane);
+            nxt_bank = load_bank_voice(words, ctl, 0, lane);
+        } else {
+            ctl = load_ctl(c, rows, mix, f0 + s - 1, n_ch, n_rows, lane);
+            nxt = load_voice(c, ctl, 0, lane);
+        }
     }
     for (; s <= kTile && f0 + s - 1 < n_frames; s += kWarps) {
         const int f = f0 + s - 1;
         const bool more = s + kWarps <= kTile && f + kWarps < n_frames;
 
-        // decode: the voices in channel order, each one's columns loaded
-        // during the one before.  The lane's words of the frame buffer; in
-        // xb a 93 voice's partial (zero but where the voice writes: words
-        // 0..127) and its band list (128..135)
-        reinterpret_cast<int4 *>(fb)[lane] = make_int4(0, 0, 0, 0);
-        reinterpret_cast<int4 *>(fb)[32 + lane] = make_int4(0, 0, 0, 0);
-        reinterpret_cast<int4 *>(xb)[lane] = make_int4(0, 0, 0, 0);
-        for (int v = 0; v < n_ch; ++v) {
-            const Voice cur = nxt;
-            if (v + 1 < n_ch) nxt = load_voice(c, ctl, v + 1, lane);
-            const int m = __shfl_sync(kFull, ctl.m, v);
-            const int fw = __shfl_sync(kFull, ctl.fw, v);
-            if (cur.kind == ROW_93) {
-                voice93(c, reinterpret_cast<unsigned short *>(xb), xb + 128,
-                        cur, m, fw, lane);
-                fold93(fb, xb, lane);
-            } else if (cur.kind == ROW_93A) {
-                voice93a(c, tb, fb, cur, m, fw, lane);
+        if (kBank) {
+            // decode: the voices in channel order, each one's bank words
+            // loaded during the one before, folded into the lane's words
+            int w[8] = {0, 0, 0, 0, 0, 0, 0, 0};
+            for (int v = 0; v < n_ch; ++v) {
+                const BankVoice cur = nxt_bank;
+                if (v + 1 < n_ch)
+                    nxt_bank = load_bank_voice(words, ctl, v + 1, lane);
+                if (cur.kind == BANK_93)
+                    fold93_bank<false>(w, cur, lane);
+                else if (cur.kind == BANK_93R)
+                    fold93_bank<true>(w, cur, lane);
+                else if (cur.kind == BANK_93A)
+                    fold93a_bank(w, cur, bands);
+            }
+            own_store(fb, lane, w);
+        } else {
+            // decode: the voices in channel order, each one's columns
+            // loaded during the one before.  The lane's words of the frame
+            // buffer; in xb a 93 voice's partial (zero but where the voice
+            // writes: words 0..127) and its band list (128..135)
+            reinterpret_cast<int4 *>(fb)[lane] = make_int4(0, 0, 0, 0);
+            reinterpret_cast<int4 *>(fb)[32 + lane] = make_int4(0, 0, 0, 0);
+            reinterpret_cast<int4 *>(xb)[lane] = make_int4(0, 0, 0, 0);
+            for (int v = 0; v < n_ch; ++v) {
+                const Voice cur = nxt;
+                if (v + 1 < n_ch) nxt = load_voice(c, ctl, v + 1, lane);
+                const int m = __shfl_sync(kFull, ctl.m, v);
+                const int fw = __shfl_sync(kFull, ctl.fw, v);
+                if (cur.kind == ROW_93) {
+                    voice93(c, reinterpret_cast<unsigned short *>(xb),
+                            xb + 128, cur, m, fw, lane);
+                    fold93(fb, xb, lane);
+                } else if (cur.kind == ROW_93A) {
+                    voice93a(c, tb, fb, cur, m, fw, lane);
+                }
             }
         }
         __syncwarp();
         // the next frame's controls load during this frame's transform
         if (more)
-            ctl = load_ctl(c, rows, mix, f + kWarps, n_ch, n_rows, lane);
+            ctl = kBank ? load_ctl_bank(kind93, rows, mix, f + kWarps, n_ch,
+                                        n_rows, lane)
+                        : load_ctl(c, rows, mix, f + kWarps, n_ch, n_rows,
+                                   lane);
 
         // transform step A: lane = b7 b3 b2 b1 b0, value k = b6 b5 b4.
         // Plane entry e' = 16k + q of half b7 comes from pair i of
@@ -813,7 +942,12 @@ decode93_pcm_kernel(Cols c, const int *__restrict__ rows,
         get<1>(fb, re, im, pos(8 * lane));
         stage<0, 0, 1>(re, im, 8 * lane, tb.cs);
         // the next frame's first voice loads during the stores
-        if (more) nxt = load_voice(c, ctl, 0, lane);
+        if (more) {
+            if (kBank)
+                nxt_bank = load_bank_voice(words, ctl, 0, lane);
+            else
+                nxt = load_voice(c, ctl, 0, lane);
+        }
 
         // volume shift + collection: output j = re[rev8(j)], so value k of
         // lane l is output 32 * rev3(k) + rev5(l)
@@ -879,35 +1013,57 @@ __global__ void normalize93_check_kernel(unsigned long long *bad) {
     if (n) atomicAdd(bad, n);
 }
 
+// one launch of an instance
+template <bool kCarry, bool kBank>
+int launch(const Cols &c, const int *rows, const int *mix, const int *vol,
+           const int *fsid, const int *pair, const int *inputs,
+           const int *cos_tab, const int *sin_tab, const int *ovl_new,
+           const int *ovl_old, const int *overlap0, int *last_ov,
+           int n_groups, int *pcm, int n_frames, int n_ch, int n_rows,
+           const int *words, const uint8_t *kind93, cudaStream_t stream) {
+    const int blocks = (n_frames + kTile - 1) / kTile;
+    decode93_pcm_kernel<kCarry, kBank><<<blocks, kThreads, 0, stream>>>(
+        c, rows, mix, vol, fsid, pair, inputs, cos_tab, sin_tab, ovl_new,
+        ovl_old, overlap0, last_ov, n_groups, pcm, n_frames, n_ch, n_rows,
+        words, kind93);
+    return (int)cudaGetLastError();
+}
+
 }  // namespace
 
+// the columns' instance, for the flat sweep: one voice a frame, row f for
+// frame f with mix[f], no carried state.  The pool is 4-byte aligned
 extern "C" int dcs_decode93_pcm(
     const uint8_t *pool, long long pool_len, const int *frame_word,
     const int *sid, const uint8_t *kind, const uint8_t *kw,
     const int *bit_rel, const int *prv, const uint8_t *code,
     const int *band_tab, int n_streams, const int *pair, const int *inputs,
+    const int *mix, const int *vol, const int *fsid, const int *cos_tab,
+    const int *sin_tab, const int *ovl_new, const int *ovl_old, int *pcm,
+    int n_frames, cudaStream_t stream) {
+    const Cols c = make_cols(pool, pool_len, frame_word, sid, kind, kw,
+                             bit_rel, prv, code, band_tab, n_streams);
+    return launch<false, false>(c, nullptr, mix, vol, fsid, pair, inputs,
+                                cos_tab, sin_tab, ovl_new, ovl_old, nullptr,
+                                nullptr, 0, pcm, n_frames, 1, n_frames,
+                                nullptr, nullptr, stream);
+}
+
+// the session instance: the session bank's rows (words [n_rows, 160],
+// kind93 [n_rows]) for rows [n_frames, n_ch] and their mixes; overlap0
+// [n_groups, 16] and last_ov both given (the carried state) or both null.
+// words is 8-byte aligned
+extern "C" int dcs_decode93_pcm_bank(
+    const int *words, const uint8_t *kind93, int n_rows, const int *inputs,
     const int *rows, const int *mix, const int *vol, const int *fsid,
     const int *cos_tab, const int *sin_tab, const int *ovl_new,
     const int *ovl_old, const int *overlap0, int *last_ov, int n_groups,
-    int *pcm, int n_frames, int n_ch, int n_rows, cudaStream_t stream) {
-    // rows null: the flat sweep, one voice a frame, row f for frame f;
-    // overlap0 and last_ov are both given (the carried state) or both null.
-    // The pool is 4-byte aligned; frame words index 32-bit words, so its
-    // whole words number below 2^31
-    const long long words = pool_len / 4;
-    const Cols c{pool, pool_len, reinterpret_cast<const uint32_t *>(pool),
-                 (int)(words < 0x7FFFFFFFLL ? words : 0x7FFFFFFFLL),
-                 frame_word, sid, kind, kw, bit_rel, prv, code, band_tab,
-                 n_streams};
-    const int blocks = (n_frames + kTile - 1) / kTile;
-    const bool carry = overlap0 != nullptr;
-    auto kernel = carry ? decode93_pcm_kernel<true>
-                        : decode93_pcm_kernel<false>;
-    kernel<<<blocks, kThreads, 0, stream>>>(
-        c, rows, mix, vol, fsid, pair, inputs, cos_tab, sin_tab, ovl_new,
-        ovl_old, overlap0, last_ov, carry ? n_groups : 0, pcm, n_frames,
-        n_ch, n_rows);
-    return (int)cudaGetLastError();
+    int *pcm, int n_frames, int n_ch, cudaStream_t stream) {
+    auto go = overlap0 != nullptr ? launch<true, true> : launch<false, true>;
+    return go(Cols{}, rows, mix, vol, fsid, nullptr, inputs, cos_tab,
+              sin_tab, ovl_new, ovl_old, overlap0, last_ov,
+              overlap0 != nullptr ? n_groups : 0, pcm, n_frames, n_ch,
+              n_rows, words, kind93, stream);
 }
 
 extern "C" int dcs_normalize93_check(unsigned long long *bad,

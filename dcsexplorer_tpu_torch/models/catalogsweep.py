@@ -363,9 +363,10 @@ class Flat93Pipeline(nn.Module):
     def forward(self, mix, vol, **cols):
         with span("dcs.flat93"):
             tabs = dict(self.named_buffers())
-            decode = decode93.decode93_pcm_plain if self.plain \
-                else decode93.decode93_pcm
-            return decode(cols, None, mix, vol, cols["sid"], tabs)
+            if self.plain:
+                return decode93.decode93_pcm_plain(cols, None, mix, vol,
+                                                   cols["sid"], tabs)
+            return decode93.decode93_pcm(cols, mix, vol, cols["sid"], tabs)
 
 
 def run_flat93(sweep, device="cuda"):

@@ -14,11 +14,13 @@ frames at once:
                           overlap state where the caller gives one) -> PCM
 1993 family (OS93a, OS93b; ``device_decode93`` of the reference):
     bank (once per ROM):  the streams' bytes and their prescan index as the
-                          bank columns of ops/decode93.py (no decode)
-    per session batch:    decode93_pcm (each frame's voices, in channel
-                          order, straight from the bitstream, then the
-                          transform and overlap resolve, with a carried
-                          state likewise) -> PCM
+                          bank columns of ops/decode93.py, then
+                          decode93_bank -> each row's words that do not
+                          depend on the mix [R, 160] (the session bank)
+    per session batch:    decode93_pcm's session instance (each frame's
+                          voices mixed from the session bank in channel
+                          order, then the transform and overlap resolve,
+                          with a carried state likewise) -> PCM
 
 ``StreamBank`` holds every stream a ROM's tracks play (row 0 silent);
 ``SessionDecoder`` and ``SessionDecoder93`` are the device halves as
@@ -57,8 +59,10 @@ class StreamBank:
     """Prescanned streams, one row per stream frame, indexed by
     ``offsets[key] + frame`` (row 0 is the silent dummy).  A 1994+ bank
     decodes every row into ``scaled`` [R, 256] (u16 storage in int16); a
-    1993 bank keeps the bitstream and its index as the bank columns
-    ``cols`` (ops/decode93.py), which the session decode reads."""
+    1993 bank decodes from the bitstream and its index, the bank columns
+    ``cols`` (ops/decode93.py, kept on the host), ``bank93``, the session
+    bank (decode93.decode93_bank_plain), which the session decode
+    mixes."""
 
     def __init__(self, os_version):
         self.os_version = os_version
@@ -171,13 +175,19 @@ class StreamBank:
     def decode_all(self, device="cuda"):
         """Build the bank on ``device`` (the card unless given).  1994+:
         decode every registered stream into ``scaled`` [R, 256], one
-        decode94_bank launch on a card.  1993: upload the bank columns
-        ``cols``.  The bank stays on the device."""
+        decode94_bank launch on a card.  1993: decode the session bank
+        ``bank93`` from the bank columns, one decode93_bank launch on a
+        card; the columns stay on the host as ``cols`` (CPU tensors), and
+        the card keeps only the session bank.  The bank stays on the
+        device."""
         dev = _device(device)
         self.device = dev
         if self.family93:
-            self.cols = {k: torch.tensor(np.ascontiguousarray(v), device=dev)
+            self.cols = {k: torch.tensor(np.ascontiguousarray(v))
                          for k, v in self.columns93().items()}
+            tabs = {k: t.to(dev) for k, t in cs.codec_tables93().items()}
+            self.bank93 = decode93.decode93_bank(
+                {k: v.to(dev) for k, v in self.cols.items()}, tabs)
             return self
         cols = self.columns()
         n_steps = cols.pop("n_steps")
@@ -223,27 +233,27 @@ class SessionDecoder(nn.Module):
 
 class SessionDecoder93(nn.Module):
     """The device half of the 1993 session path (the reference's
-    ``device_decode93``).  Buffers: the bank's columns (the byte pool, the
-    per-row columns, band_tab) and the codec tables of codec_tables93
-    (the pair table among them), on ``device`` (the bank's unless given).
-    ``plain=True`` runs the plain PyTorch versions of the kernels on any
-    device (the comparison path)."""
+    ``device_decode93``).  Buffers: the bank's session bank (``words93``,
+    ``kind93``) and the codec tables of codec_tables93, on ``device`` (the
+    bank's unless given); every row is in the session bank, so the
+    bitstream stays with the bank.  ``plain=True`` runs the plain PyTorch
+    versions of the kernels on any device (the comparison path)."""
 
     def __init__(self, bank, device=None, plain=False):
         super().__init__()
         self.plain = plain
         dev = bank.device if device is None else _device(device)
-        for name, t in list(bank.cols.items()) + list(
+        for name, t in list(bank.bank93.items()) + list(
                 cs.codec_tables93().items()):
             self.register_buffer(name, t.to(dev))
 
     def forward(self, rows, mix, vol_shift, sid, overlap0=None):
         """As SessionDecoder.forward: rows/mix [F, C], vol_shift [F], sid
         [F], overlap0 [G, 16] or None.  Each frame starts from silence and
-        decodes its voices in channel order."""
+        mixes its voices' session-bank rows in channel order."""
         bufs = dict(self.named_buffers())
-        decode = decode93.decode93_pcm_plain if self.plain \
-            else decode93.decode93_pcm
+        decode = decode93.session93_pcm_plain if self.plain \
+            else decode93.session93_pcm
         return decode(bufs, rows, mix, vol_shift, sid, bufs, overlap0)
 
 

@@ -21,8 +21,9 @@ tensors (``ops/kernels.py``), its plain PyTorch version on CPU tensors:
     segments94 (wire -> rows, mix, vol) -> session_mix94 -> transform94_pcm
     with sid = session index (each session starts from a zero overlap state)
 
-and for a 1993 ROM, segments94 -> decode93_pcm (decode, transform and
-overlap resolve in one) likewise (the wire does not depend on the family).
+and for a 1993 ROM, segments94 -> decode93_pcm's session instance (the
+session bank's rows mixed, transform and overlap resolve in one) likewise
+(the wire does not depend on the family).
 
 The entry points (``build_rom_bank``, ``play_session``, ``autoplay``,
 ``SessionServer``) run on the card unless the caller names another device.

@@ -21,13 +21,26 @@ anomaly in closed form, scale/mix accumulate, the first-sample fix-up);
 ``decode93_fb_plain`` decodes a session batch or a flat sweep from the bank
 columns (below): per output frame and voice, in channel order, the 93 body
 and then the 93a body, exactly as the reference's ``device_decode93`` chains
-them, into frame buffers.  ``decode93_pcm`` is the stage of every 1993 path:
-that decode, then ``transform.transform93_pcm``'s inverse transform and
-overlap resolve, bank columns in and PCM out.  It launches
+them, into frame buffers; ``decode93_pcm_plain`` follows it with
+``transform.transform93_pcm_plain``'s inverse transform and overlap
+resolve, and is the plain version both instances of the kernel are held
+against.  ``decode93_pcm`` is the flat sweeps' stage (rows None, one voice
+a frame): bank columns in and PCM out, through the columns' instance of
 ``csrc/decode93_pcm.cu`` for CUDA tensors, whose frame buffers never reach
-device memory, and takes ``decode93_pcm_plain`` (the composition of the two
-plain versions) for CPU tensors.  The kernels of the two halves,
-``kernels.decode93_fb`` and ``kernels.transform93_pcm``, are on no path.
+device memory, and ``decode93_pcm_plain`` for CPU tensors.  The kernels
+of the two halves, ``kernels.decode93_fb`` and ``kernels.transform93_pcm``,
+are on no path.
+
+The session path plays each bank row thousands of times a batch, so it
+decodes once per ROM what does not depend on the mix: ``decode93_bank``
+(``csrc/decode93_bank.cu``; plain ``decode93_bank_plain``) turns the bank
+columns into the session bank, per row and frame-buffer word the low word
+of its write (``cells93_plain``) or its Type-1 pair value
+(``decode93a.inputs93a_plain``), with repeat indices and Type-1 scales
+beside them (layout: ``csrc/decode93_bank.cuh``).  ``session93_pcm`` is
+the sessions' stage: those words mixed in channel order
+(``session93_fb_plain``), then the same transform, through the session
+instance of ``csrc/decode93_pcm.cu`` for CUDA tensors.
 
 The bank columns (``models/catalogsweep.columns93``), one row per stream
 frame (row kinds: 0 silent, 1 the 93 bands, 2 OS93a Type-1):
@@ -261,28 +274,21 @@ def index_arrays(idx, bit_base=0):
     }
 
 
-def decode93_frames_plain(pool_u8, arrs, mix, fb_prev=None):
-    """One voice of the 93 band decode into frame buffers [F, 512].
-
-    pool_u8 [L] uint8; arrs: the index_arrays fields as tensors ([F, 16]
-    each; bit_start absolute in the pool); mix [F]; fb_prev [F, 512] the
-    frame buffers so far, or None for silence.  Returns int32 (u16
-    storage): each (band, sample) cell's value, chained by its band's kind,
-    scaled and mixed into its word (words past 511 are dropped; no two
-    cells of a frame share a word), then the saturating first-sample
-    fix-up of words 0 and 1.  Placement is a scatter, not the reference's
-    compare-reduce."""
+def cells93_plain(pool_u8, arrs):
+    """Each (band, sample) cell of one voice of the 93 band decode, as the
+    words of its write that do not depend on the mix: (target word, writes,
+    lo, i), each [F, 16, 16].  The cell's write is (((old << 16) | lo') +
+    P) >> 16 with P = s16(lo) * mix and lo' = (lo + i * (P & $FFFF)) & $FFFF:
+    lo is the cell's value, chained by its band's kind and scaled, and i is
+    0; a repeat cell's lo is its band's l0 = low16(prv_in * scale) and i its
+    index (the subtype-1 repeat anomaly in closed form: the product's low
+    word carries across iterations as L_i = (l0 + i * low16(s16(l0) *
+    mix)) mod 2^16).  arrs as decode93_frames_plain takes them."""
     kind, width, n_samp, bit_start, out_start, out_inc, scale, prv_in, \
         prv_dl = (arrs[k].long() for k in (
             "kind", "width", "n_samp", "bit_start", "out_start", "out_inc",
             "scale", "prv_in", "prv_dl"))
-    F = kind.shape[0]
     dev = kind.device
-    fb = torch.zeros((F, 513), dtype=torch.long, device=dev)
-    if fb_prev is not None:
-        fb[:, :512] = fb_prev.long()
-    outbuf1 = fb[:, 1].clone()
-
     i16 = torch.arange(16, device=dev).reshape(1, 1, 16)
     kx = kind[:, :, None]
     w = width[:, :, None]
@@ -303,26 +309,40 @@ def decode93_frames_plain(pool_u8, arrs, mix, fb_prev=None):
                        torch.where(kx == K_DATA2, (ramp + c2) & M16,
                                    torch.where(kx == K_RAMP, ramp & M16,
                                                samp)))
-
-    # the exact scale/mix accumulate (reference AddOutput)
     sc = scale[:, :, None] & M16
-    mixv = mix.long()[:, None, None] & M16
+    rep = kx == K_REPEAT
+    lo = torch.where(rep, (s16(p_in) * sc) & M16, (s16(vals) * sc) & M16)
     fbi = out_start[:, :, None] + i16 * out_inc[:, :, None]
-    write = live & (kx != K_NONE) & (fbi >= 0) & (fbi < 512)
+    return (fbi, live & (kx != K_NONE), lo,
+            torch.where(rep, i16, 0).expand_as(lo))
+
+
+def decode93_frames_plain(pool_u8, arrs, mix, fb_prev=None):
+    """One voice of the 93 band decode into frame buffers [F, 512].
+
+    pool_u8 [L] uint8; arrs: the index_arrays fields as tensors ([F, 16]
+    each; bit_start absolute in the pool); mix [F]; fb_prev [F, 512] the
+    frame buffers so far, or None for silence.  Returns int32 (u16
+    storage): each (band, sample) cell's value, chained by its band's kind,
+    scaled and mixed into its word (cells93_plain; words past 511 are
+    dropped; no two cells of a frame share a word), then the saturating
+    first-sample fix-up of words 0 and 1.  Placement is a scatter, not the
+    reference's compare-reduce."""
+    F = arrs["kind"].shape[0]
+    dev = arrs["kind"].device
+    fb = torch.zeros((F, 513), dtype=torch.long, device=dev)
+    if fb_prev is not None:
+        fb[:, :512] = fb_prev.long()
+    outbuf1 = fb[:, 1].clone()
+
+    fbi, write, lo, i = cells93_plain(pool_u8, arrs)
+    write = write & (fbi >= 0) & (fbi < 512)
     old = torch.gather(fb, 1, fbi.clamp(0, 511).reshape(F, 256))
     old = s16(old.reshape(F, 16, 16))
-    scaled = (s16(vals) * sc) & M16
-    acc_new = ((((old << 16) | scaled) + s16(scaled) * mixv) >> 16) & M16
-
-    # subtype-1 repeat anomaly, closed form: the product's low word carries
-    # across iterations as L_k = (L0 + k*M) mod 2^16 with
-    # L0 = low16(prv_in*scale), M = low16(s16(L0)*mix)
-    l0 = (s16(p_in) * sc) & M16
-    pl = s16(l0)
-    l_enter = (l0 + i16 * ((pl * mixv) & M16)) & M16
-    rep_new = ((((old << 16) | l_enter) + pl * mixv) >> 16) & M16
-
-    new_val = torch.where(kx == K_REPEAT, rep_new, acc_new)
+    # the exact scale/mix accumulate (reference AddOutput)
+    p = s16(lo) * (mix.long()[:, None, None] & M16)
+    lo_i = (lo + i * (p & M16)) & M16
+    new_val = ((((old << 16) | lo_i) + p) >> 16) & M16
     # cells that write nothing go to the spare word 512
     fb.scatter_(1, torch.where(write, fbi, 512).reshape(F, 256),
                 new_val.reshape(F, 256))
@@ -430,11 +450,159 @@ def decode93_pcm_plain(cols, rows, mix, vol_shift, sid, tabs, overlap0=None):
     return tf.transform93_pcm_plain(fb, vol_shift, sid, tabs, overlap0)
 
 
-def decode93_pcm(cols, rows, mix, vol_shift, sid, tabs, overlap0=None):
-    """Bank columns -> PCM (see decode93_pcm_plain): plain version for CPU
-    tensors, the CUDA kernel for CUDA tensors."""
+def decode93_pcm(cols, mix, vol_shift, sid, tabs):
+    """The flat sweep's bank columns -> PCM, each row one frame of one
+    voice (decode93_pcm_plain with rows None): plain version for CPU
+    tensors, the CUDA kernel's columns' instance for CUDA tensors."""
     if mix.device.type == "cpu":
-        return decode93_pcm_plain(cols, rows, mix, vol_shift, sid, tabs,
-                                  overlap0)
-    return kernels.decode93_pcm(*(cols[k] for k in COLUMNS), rows, mix,
-                                vol_shift, sid, tabs, overlap0)
+        return decode93_pcm_plain(cols, None, mix, vol_shift, sid, tabs)
+    return kernels.decode93_pcm(*(cols[k] for k in COLUMNS), mix, vol_shift,
+                                sid, tabs)
+
+
+# -- the session bank ---------------------------------------------------------
+
+# the session bank's layout (csrc/decode93_bank.cuh): int32 words a row
+# (256 halfwords, then 32 side words), and its row kinds
+BANK_WORDS, BANK_SIDE = kernels.BANK93_WORDS, 128
+BANK_SILENT, BANK_93, BANK_93A, BANK_93R = 0, 1, 2, 3
+# lane l's 8 frame-buffer words, in the order of its side word's nibbles
+LANE_WORDS = torch.tensor([[4 * l + k for k in range(4)]
+                           + [128 + 4 * l + k for k in range(4)]
+                           for l in range(32)])
+# each frame-buffer word's Type-1 band (words 254 and 255: 18, no band)
+WORD_BAND = torch.from_numpy(np.concatenate(
+    [np.repeat(decode93a.IN_BAND, 2), [decode93a.N_BANDS] * 2]))
+
+
+def _wrap32(x):
+    """int64 words of 32 bits -> int32 (two's complement)."""
+    return torch.where(x >= 1 << 31, x - (1 << 32), x).int()
+
+
+def decode93_bank_plain(cols, tabs):
+    """Plain version of the decode93_bank kernel: the session bank of the
+    bank columns, the words of each row's decode that do not depend on the
+    mix (csrc/decode93_bank.cuh).  Returns {"words93": [R, 160] int32,
+    "kind93": [R] uint8}.  A row's halfword t is frame-buffer word t's lo
+    (cells93_plain) for a 93 row, its pair-table value for an OS93a Type-1
+    row (inputs93a_plain), 0 where nothing writes it; its side word l holds
+    a 93 row's repeat indices of LANE_WORDS[l], 4 bits each, or a Type-1
+    row's band l's scale32 >> 16 (l < 18, bands with samples).  Kinds:
+    BANK_93R for a 93 row with a repeat index above 0, else the row's."""
+    arrs93, arrs93a = unpack_columns93(cols)
+    kind_row = cols["kind_u8"].long()
+    R = kind_row.shape[0]
+    dev = kind_row.device
+    lo = torch.zeros((R, 257), dtype=torch.long, device=dev)
+    rep = torch.zeros((R, 257), dtype=torch.long, device=dev)
+    for a in range(0, R, _CHUNK):
+        b = min(R, a + _CHUNK)
+        fbi, write, c_lo, c_i = cells93_plain(
+            cols["pool_u8"], {k: v[a:b] for k, v in arrs93.items()})
+        write = write & (fbi >= 0) & (fbi < 256)
+        # cells that write nothing go to the spare word 256
+        at = torch.where(write, fbi, 256).reshape(b - a, 256)
+        lo[a:b].scatter_(1, at, c_lo.reshape(b - a, 256))
+        rep[a:b].scatter_(1, at, c_i.reshape(b - a, 256))
+        vals, live = decode93a.inputs93a_plain(
+            cols["pool_u8"], {k: v[a:b] for k, v in arrs93a.items()},
+            tabs["pair"])
+        lo[a:b, :decode93a.TOTAL_OUT] += torch.where(live, vals & M16, 0)
+    lo, rep = lo[:, :256], rep[:, :256]
+    nib = (rep[:, LANE_WORDS.to(dev)] << (4 * torch.arange(8, device=dev))) \
+        .sum(-1)                                            # [R, 32]
+    scale = torch.zeros((R, 32), dtype=torch.long, device=dev)
+    scale[:, :decode93a.N_BANDS] = arrs93a["scale32"] >> 16
+    is93 = kind_row == ROW_93
+    side = torch.where(is93[:, None], nib, scale)
+    kind93 = torch.where(is93 & (nib != 0).any(1), BANK_93R, kind_row)
+    words = torch.cat([lo[:, 0::2] | lo[:, 1::2] << 16, side], 1)
+    return {"words93": _wrap32(words), "kind93": kind93.to(torch.uint8)}
+
+
+def decode93_bank(cols, tabs):
+    """The bank columns -> the session bank (see decode93_bank_plain):
+    plain version for CPU tensors, the CUDA kernel for CUDA tensors."""
+    if cols["pool_u8"].device.type == "cpu":
+        return decode93_bank_plain(cols, tabs)
+    words, kind93 = kernels.decode93_bank(*(cols[k] for k in COLUMNS),
+                                          tabs["pair"], tabs["inputs"])
+    return {"words93": words, "kind93": kind93}
+
+
+def session93_fb_plain(bank, rows, mix, fb_prev=None):
+    """The session bank's rows mixed into frame buffers, as the session
+    instance of the decode93_pcm kernel folds them: bank (decode93_bank's),
+    rows [F, C] int32 and mix [F, C].  Each frame starts from silence (or
+    from words 0..255 of fb_prev [F, 512]) and folds its voices in channel
+    order: a 93 voice adds to word t the delta
+    (lo' + P) >> 16 (cells93_plain's write, whose old word's bits enter
+    only above the shift), then takes the first-sample fix-up of words 0
+    and 1; a Type-1 voice adds (p8 >> 16) with p8 = pk * 2 * eff + $8000
+    mod 2^32, eff = s16((scale * mix) >> 15) of the word's band, and clears
+    bit 0 where p8's low half is 0 (the MAC's tie rule on the running
+    word).  Returns [F, 512] int32 (u16 storage, words 256..511 zero:
+    the transform reads words 0..255 only)."""
+    words = bank["words93"].long() & 0xFFFFFFFF
+    kind = bank["kind93"].long()
+    R = kind.shape[0]
+    dev = kind.device
+    lo_all = torch.stack([words[:, :128] & M16, words[:, :128] >> 16],
+                         -1).reshape(R, 256)
+    side = words[:, BANK_SIDE:]
+    rep_all = torch.zeros((R, 256), dtype=torch.long, device=dev)
+    rep_all[:, LANE_WORDS.reshape(-1).to(dev)] = (
+        (side[:, :, None] >> (4 * torch.arange(8, device=dev))) & 15
+    ).reshape(R, 256)
+    scale_all = torch.cat([side[:, :decode93a.N_BANDS],
+                           torch.zeros((R, 1), dtype=torch.long,
+                                       device=dev)], 1)
+    band = WORD_BAND.to(dev)
+    F, C = rows.shape
+    out = torch.zeros((F, 512), dtype=torch.int32, device=dev)
+    for a in range(0, F, _CHUNK):
+        b = min(F, a + _CHUNK)
+        fb = (torch.zeros((b - a, 256), dtype=torch.long, device=dev)
+              if fb_prev is None else fb_prev[a:b, :256].long())
+        for c in range(C):
+            r = rows[a:b, c].long()
+            m = mix[a:b, c].long()[:, None] & M16
+            k = kind[r][:, None]
+            lo = lo_all[r]
+            p = s16(lo) * m
+            d = (((lo + rep_all[r] * (p & M16)) & M16) + p) >> 16
+            w93 = fb + d
+            w0, w1 = fb[:, 0], fb[:, 1]
+            w93[:, 0] = sat16(s16(sat16(s16(w1 + d[:, 1]) - s16(w1)))
+                              + s16(w0))
+            w93[:, 1] = w1
+            eff = s16((scale_all[r] * m) >> 15)[:, band]
+            p8 = (s16(lo) * 2 * eff + 0x8000) & 0xFFFFFFFF
+            wa = fb + (p8 >> 16)
+            wa = torch.where((p8 & M16) == 0, wa & ~1, wa)
+            fb = torch.where((k == BANK_93) | (k == BANK_93R), w93,
+                             torch.where(k == BANK_93A, wa, fb))
+        out[a:b, :256] = (fb & M16).int()
+    return out
+
+
+def session93_pcm_plain(bank, rows, mix, vol_shift, sid, tabs,
+                        overlap0=None):
+    """Plain version of the decode93_pcm kernel's session instance:
+    session93_fb_plain, then transform.transform93_pcm_plain (arguments
+    and result as decode93_pcm_plain's).  On the bank of the same columns
+    it equals decode93_pcm_plain."""
+    fb = session93_fb_plain(bank, rows, mix)
+    return tf.transform93_pcm_plain(fb, vol_shift, sid, tabs, overlap0)
+
+
+def session93_pcm(bank, rows, mix, vol_shift, sid, tabs, overlap0=None):
+    """The session bank's rows -> PCM (see session93_pcm_plain): plain
+    version for CPU tensors, the CUDA kernel's session instance for CUDA
+    tensors."""
+    if mix.device.type == "cpu":
+        return session93_pcm_plain(bank, rows, mix, vol_shift, sid, tabs,
+                                   overlap0)
+    return kernels.decode93_pcm_bank(bank["words93"], bank["kind93"], rows,
+                                     mix, vol_shift, sid, tabs, overlap0)

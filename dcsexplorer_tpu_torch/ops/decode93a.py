@@ -176,18 +176,12 @@ def pool_bits(pool_u8, bit, w):
     return ((word << (bit & 7)) & 0xFFFFFFFF) >> (32 - w)
 
 
-def decode93a_frames_plain(pool_u8, arrs, mix, pair, fb_prev=None):
-    """One voice of the OS93a Type-1 decode into frame buffers [F, 512].
-
-    pool_u8 [L] uint8; arrs: the index_arrays fields as tensors (bits,
-    bit_start absolute in the pool, scale32; [F, 18] each); mix [F]; pair
-    [2048] the pair table; fb_prev [F, 512] the frame buffers so far, or
-    None for silence.  Input j (band b, index i) reads bits[b] bits at
-    bit_start[b] + i * bits[b] and folds pair[(2 << bits) + 2 * raw + k],
-    k = 0, 1, into words 2j + k: round((old << 16) + (s16(pair) *
-    s16(eff)) << 1) with eff = ((scale32 >> 16) * mix) >> 15 and the MAC's
-    tie rule.  Words of bands without samples, and words 254..511, keep
-    their value.  Returns int32 (u16 storage)."""
+def inputs93a_plain(pool_u8, arrs, pair):
+    """Each input's pair-table values of one voice of the OS93a Type-1
+    decode, which do not depend on the mix: (vals [F, 254] (words 2j and
+    2j + 1 of input j: pair[(2 << bits) + 2 * raw + k], k = 0, 1), live
+    [F, 254] (the word's band has samples)).  arrs as
+    decode93a_frames_plain takes them."""
     bits = arrs["bits"].long()
     dev = bits.device
     F = bits.shape[0]
@@ -200,11 +194,28 @@ def decode93a_frames_plain(pool_u8, arrs, mix, pair, fb_prev=None):
                       0)
     p = (2 << w) + 2 * raw
     vals = pair.long()[torch.stack([p, p + 1], dim=-1)].reshape(F, TOTAL_OUT)
+    return vals, live.repeat_interleave(2, dim=1)
 
+
+def decode93a_frames_plain(pool_u8, arrs, mix, pair, fb_prev=None):
+    """One voice of the OS93a Type-1 decode into frame buffers [F, 512].
+
+    pool_u8 [L] uint8; arrs: the index_arrays fields as tensors (bits,
+    bit_start absolute in the pool, scale32; [F, 18] each); mix [F]; pair
+    [2048] the pair table; fb_prev [F, 512] the frame buffers so far, or
+    None for silence.  Input j (band b, index i) reads bits[b] bits at
+    bit_start[b] + i * bits[b] and folds pair[(2 << bits) + 2 * raw + k],
+    k = 0, 1, into words 2j + k: round((old << 16) + (s16(pair) *
+    s16(eff)) << 1) with eff = ((scale32 >> 16) * mix) >> 15 and the MAC's
+    tie rule.  Words of bands without samples, and words 254..511, keep
+    their value.  Returns int32 (u16 storage)."""
+    F = arrs["bits"].shape[0]
+    dev = arrs["bits"].device
+    vals, live2 = inputs93a_plain(pool_u8, arrs, pair)
     eff = (((arrs["scale32"].long() & 0xFFFFFFFF) >> 16)
            * (mix.long()[:, None] & M16)) >> 15               # [F, 18]
-    eff2 = eff[:, band].repeat_interleave(2, dim=1)
-    live2 = live.repeat_interleave(2, dim=1)
+    eff2 = eff[:, torch.from_numpy(IN_BAND).to(dev)].repeat_interleave(
+        2, dim=1)
     fb = (torch.zeros((F, 512), dtype=torch.long, device=dev)
           if fb_prev is None else fb_prev.long().clone())
     old = fb[:, :TOTAL_OUT]
@@ -213,4 +224,3 @@ def decode93a_frames_plain(pool_u8, arrs, mix, pair, fb_prev=None):
     res = torch.where((prod & M16) == 0x8000, res & ~0x10000, res)
     fb[:, :TOTAL_OUT] = torch.where(live2, (res >> 16) & M16, old & M16)
     return fb.int()
-

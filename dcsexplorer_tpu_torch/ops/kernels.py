@@ -32,9 +32,10 @@ CSRC = os.path.join(_PKG, "csrc")
 SOURCES = ("decode94_fb.cu", "decode94_bank.cu", "dequant_mix.cu",
            "dequant_mix_dense.cu", "segments94.cu", "session_mix94.cu",
            "transform94.cu", "transform94_pcm.cu", "decode93_fb.cu",
-           "transform93_pcm.cu", "decode93_pcm.cu", "encode94_analyze.cu",
-           "encode94_decide.cu", "encode94_select.cu")
-HEADERS = ("dcs_fixmath.cuh", "decode94_walk.cuh", "encode94_scale.cuh")
+           "transform93_pcm.cu", "decode93_pcm.cu", "decode93_bank.cu",
+           "encode94_analyze.cu", "encode94_decide.cu", "encode94_select.cu")
+HEADERS = ("dcs_fixmath.cuh", "decode94_walk.cuh", "decode93_bank.cuh",
+           "encode94_scale.cuh")
 LIB_PATH = os.path.join(_REPO, "build", "torch_kernels", "libdcs_torch.so")
 ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
 NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
@@ -42,14 +43,17 @@ NVCC_FLAGS = (*ARCH, "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas",
 
 # launches per kernel; each wrapper adds one where it launches its kernel
 # (x_carry: kernel x's instance with a carried overlap state;
-# segments94_rows32: segments94's instance for the wide wire)
+# segments94_rows32: segments94's instance for the wide wire; decode93_pcm
+# counts both the columns' instance (the flat sweep) and the session
+# instance, decode93_pcm_carry the session instance with a carried state)
 LAUNCHES = {"decode94_fb": 0, "decode94_bank": 0, "dequant_mix": 0,
             "dequant_mix_dense": 0, "segments94": 0,
             "segments94_rows32": 0, "session_mix94": 0,
             "transform94_planar": 0, "transform94_pcm": 0, "transform94_pcm_carry": 0,
             "decode93_fb": 0, "transform93_pcm": 0,
             "transform93_pcm_carry": 0, "decode93_pcm": 0,
-            "decode93_pcm_carry": 0, "encode94_analyze": 0,
+            "decode93_pcm_carry": 0, "decode93_bank": 0,
+            "encode94_analyze": 0,
             "encode94_decide": 0, "encode94_select": 0}
 
 # frames per block of csrc/transform94_pcm.cu, transform93_pcm.cu and
@@ -100,12 +104,19 @@ _SIGNATURES = {
     # fb, vol_shift, sid, tables (_PCM93_TABLES order), overlap0 (nullable),
     # last_ov (nullable), n_groups, pcm, n_frames, stream
     "dcs_transform93_pcm": [_P, _P, _P, *[_P] * 5, _P, _P, _I, _P, _I, _P],
-    # the columns as dcs_decode93_fb (pool .. pair, inputs), rows
-    # (nullable), mix, vol_shift, sid (of each output frame), tables
-    # (_DECODE93_PCM_TABLES order), overlap0 (nullable), last_ov (nullable),
-    # n_groups, pcm, n_frames, n_ch, n_rows, stream
-    "dcs_decode93_pcm": [_P, _LL, *[_P] * 8, _I, _P, _P, _P, _P, _P, _P,
-                         *[_P] * 4, _P, _P, _I, _P, _I, _I, _I, _P],
+    # the columns as dcs_decode93_fb (pool .. pair, inputs), mix,
+    # vol_shift, sid (of each output frame), tables (_DECODE93_PCM_TABLES
+    # order), pcm, n_frames, stream
+    "dcs_decode93_pcm": [_P, _LL, *[_P] * 8, _I, _P, _P, _P, _P, _P,
+                         *[_P] * 4, _P, _I, _P],
+    # words93, kind93, n_rows, inputs, rows, mix, vol_shift, sid, tables
+    # (_DECODE93_PCM_TABLES order), overlap0 (nullable), last_ov
+    # (nullable), n_groups, pcm, n_frames, n_ch, stream
+    "dcs_decode93_pcm_bank": [_P, _P, _I, *[_P] * 5, *[_P] * 4, _P, _P, _I,
+                              _P, _I, _I, _P],
+    # the columns as dcs_decode93_fb (pool .. pair, inputs), words93,
+    # kind93, n_rows, stream
+    "dcs_decode93_bank": [_P, _LL, *[_P] * 8, _I, _P, _P, _P, _P, _I, _P],
     # mismatch count (uint64 on the card), stream
     "dcs_normalize93_check": [_P, _P],
     # pcm, fq, ci, n_streams, fmax, stream
@@ -502,9 +513,9 @@ def session_mix94(scaled, rows, mix):
 
 
 def _check_columns93(pool_u8, frame_word, sid, kind_u8, kw_u8, bit_rel, prv,
-                     code_u8, band_tab, rows, mix, pair, inputs):
-    """The 1993 bank columns, rows and mixes of decode93_fb and
-    decode93_pcm; returns (F, C)."""
+                     code_u8, band_tab, pair, inputs):
+    """The 1993 bank columns and tables of decode93_fb, decode93_pcm and
+    decode93_bank; returns the number of rows."""
     R = frame_word.shape[0]
     S = band_tab.shape[0]
     dev = pool_u8.device
@@ -519,19 +530,24 @@ def _check_columns93(pool_u8, frame_word, sid, kind_u8, kw_u8, bit_rel, prv,
     _check("band_tab", band_tab, torch.int32, (S, 16, 8), dev)
     _check("pair", pair, torch.int32, (2048,), dev)
     _check("inputs", inputs, torch.int32, (18,), dev)
-    if rows is None:
-        F, C = R, 1
-        _check("mix", mix, torch.int32, (R,), dev)
-    else:
-        F, C = rows.shape
-        _check("rows", rows, torch.int32, (F, C), dev)
-        _check("mix", mix, torch.int32, (F, C), dev)
-        if not 1 <= C <= MAX_CHANNELS:
-            raise ValueError(f"{C} channels; expected 1..8")
     # the kernels load 4-byte pool words and 16-byte band-table rows
     for name, t, align in (("pool_u8", pool_u8, 4), ("band_tab", band_tab, 16)):
         if t.data_ptr() % align:
             raise ValueError(f"{name}: not {align}-byte aligned")
+    return R
+
+
+def _check_rows93(rows, mix, R, dev):
+    """The rows [F, C] and mixes of a 1993 decode over R bank rows (rows
+    None: the flat sweep, row f for frame f, mix [R]); returns (F, C)."""
+    if rows is None:
+        _check("mix", mix, torch.int32, (R,), dev)
+        return R, 1
+    F, C = rows.shape
+    _check("rows", rows, torch.int32, (F, C), dev)
+    _check("mix", mix, torch.int32, (F, C), dev)
+    if not 1 <= C <= MAX_CHANNELS:
+        raise ValueError(f"{C} channels; expected 1..8")
     return F, C
 
 
@@ -542,9 +558,9 @@ def decode93_fb(pool_u8, frame_word, sid, kind_u8, kw_u8, bit_rel, prv,
     voice (None: the flat sweep, row f for frame f, mix [F]) with their
     mixes -> [F, 512] int32; see decode93.decode93_fb_plain."""
     with span("dcs.kernel.decode93_fb"):
-        F, C = _check_columns93(pool_u8, frame_word, sid, kind_u8, kw_u8,
-                                bit_rel, prv, code_u8, band_tab, rows, mix,
-                                pair, inputs)
+        R = _check_columns93(pool_u8, frame_word, sid, kind_u8, kw_u8,
+                             bit_rel, prv, code_u8, band_tab, pair, inputs)
+        F, C = _check_rows93(rows, mix, R, pool_u8.device)
         out = torch.empty((F, 512), dtype=torch.int32, device=pool_u8.device)
         if F:
             _launch("decode93_fb", "dcs_decode93_fb", pool_u8.device,
@@ -607,53 +623,119 @@ _DECODE93_PCM_TABLES = (("cos", 128), ("sin", 128), ("ovl_new", 16),
                         ("ovl_old", 16))
 
 
+def _pcm93_out(F, dev, vol_shift, frame_sid, tabs, overlap0):
+    """Check what both instances of decode93_pcm take beside their rows
+    (vol_shift, frame_sid, the codec tables, overlap0); allocate pcm
+    [F, 240] and, with overlap0, last_ov (its copy: ids with no frame keep
+    theirs)."""
+    _check("vol_shift", vol_shift, torch.int32, (F,), dev)
+    _check("frame_sid", frame_sid, torch.int32, (F,), dev)
+    for name, n in _DECODE93_PCM_TABLES:
+        _check(name, tabs[name], torch.int32, (n,), dev)
+    pcm = torch.empty((F, 240), dtype=torch.int32, device=dev)
+    aligned = [("pcm", pcm)]
+    last_ov = None
+    if overlap0 is not None:
+        _check("overlap0", overlap0, torch.int32, (overlap0.shape[0], 16),
+               dev)
+        last_ov = overlap0.clone()
+        aligned.append(("overlap0", overlap0))
+    # the kernel loads 16-byte words of overlap0 and stores them to pcm
+    for name, t in aligned:
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: not 16-byte aligned")
+    return pcm, last_ov
+
+
 def decode93_pcm(pool_u8, frame_word, sid, kind_u8, kw_u8, bit_rel, prv,
-                 code_u8, band_tab, rows, mix, vol_shift, frame_sid, tabs,
-                 overlap0=None):
-    """1993-family PCM on the card (csrc/decode93_pcm.cu): the bank columns,
-    rows and mixes as decode93_fb takes them, vol_shift [F] and frame_sid
-    [F] (each output frame's stream or session) -> pcm [F, 240] int32, the
-    frame buffers kept on chip; see decode93.decode93_pcm_plain.  With
-    overlap0 [G, 16] the carry at a run's start is overlap0[frame_sid], and
-    the result is (pcm, last_ov [G, 16])."""
-    kernel = "decode93_pcm" if overlap0 is None else "decode93_pcm_carry"
-    with span(f"dcs.kernel.{kernel}"):
+                 code_u8, band_tab, mix, vol_shift, frame_sid, tabs):
+    """1993-family PCM of the flat sweep on the card (csrc/decode93_pcm.cu,
+    its columns' instance): the bank columns, each row one frame of one
+    voice with its mix [R], vol_shift [R] and frame_sid [R] (each frame's
+    stream) -> pcm [R, 240] int32, the frame buffers kept on chip; see
+    decode93.decode93_pcm_plain with rows None.  Sessions mix the session
+    bank instead (decode93_pcm_bank)."""
+    with span("dcs.kernel.decode93_pcm"):
         pair, inputs = tabs["pair"], tabs["inputs"]
-        F, C = _check_columns93(pool_u8, frame_word, sid, kind_u8, kw_u8,
-                                bit_rel, prv, code_u8, band_tab, rows, mix,
-                                pair, inputs)
+        R = _check_columns93(pool_u8, frame_word, sid, kind_u8, kw_u8,
+                             bit_rel, prv, code_u8, band_tab, pair, inputs)
         dev = pool_u8.device
-        _check("vol_shift", vol_shift, torch.int32, (F,), dev)
-        _check("frame_sid", frame_sid, torch.int32, (F,), dev)
-        for name, n in _DECODE93_PCM_TABLES:
-            _check(name, tabs[name], torch.int32, (n,), dev)
-        pcm = torch.empty((F, 240), dtype=torch.int32, device=dev)
-        aligned = [("pcm", pcm)]
-        last_ov = None
-        if overlap0 is not None:
-            _check("overlap0", overlap0, torch.int32, (overlap0.shape[0], 16),
-                   dev)
-            last_ov = overlap0.clone()        # ids with no frame keep theirs
-            aligned.append(("overlap0", overlap0))
-        # the kernel loads 16-byte words of overlap0 and stores them to pcm
-        for name, t in aligned:
-            if t.data_ptr() % 16:
-                raise ValueError(f"{name}: not 16-byte aligned")
-        if F:
-            _launch(kernel, "dcs_decode93_pcm", dev, pool_u8.data_ptr(),
-                    pool_u8.numel(),
+        _check("mix", mix, torch.int32, (R,), dev)
+        pcm, _ = _pcm93_out(R, dev, vol_shift, frame_sid, tabs, None)
+        if R:
+            _launch("decode93_pcm", "dcs_decode93_pcm", dev,
+                    pool_u8.data_ptr(), pool_u8.numel(),
                     frame_word.data_ptr(), sid.data_ptr(), kind_u8.data_ptr(),
                     kw_u8.data_ptr(), bit_rel.data_ptr(), prv.data_ptr(),
                     code_u8.data_ptr(), band_tab.data_ptr(), band_tab.shape[0],
-                    pair.data_ptr(), inputs.data_ptr(),
-                    None if rows is None else rows.data_ptr(), mix.data_ptr(),
+                    pair.data_ptr(), inputs.data_ptr(), mix.data_ptr(),
                     vol_shift.data_ptr(), frame_sid.data_ptr(),
+                    *[tabs[name].data_ptr()
+                      for name, _ in _DECODE93_PCM_TABLES],
+                    pcm.data_ptr(), R)
+        return pcm
+
+
+# int32 words a row of the 1993 session bank (csrc/decode93_bank.cuh)
+BANK93_WORDS = 160
+
+
+def decode93_bank(pool_u8, frame_word, sid, kind_u8, kw_u8, bit_rel, prv,
+                  code_u8, band_tab, pair, inputs):
+    """The 1993 session bank on the card (csrc/decode93_bank.cu), once per
+    ROM: the bank columns -> (words93 [R, 160] int32, kind93 [R] uint8);
+    see decode93.decode93_bank_plain."""
+    with span("dcs.kernel.decode93_bank"):
+        R = _check_columns93(pool_u8, frame_word, sid, kind_u8, kw_u8,
+                             bit_rel, prv, code_u8, band_tab, pair, inputs)
+        dev = pool_u8.device
+        words = torch.empty((R, BANK93_WORDS), dtype=torch.int32, device=dev)
+        kind93 = torch.empty(R, dtype=torch.uint8, device=dev)
+        if R:
+            _launch("decode93_bank", "dcs_decode93_bank", dev,
+                    pool_u8.data_ptr(), pool_u8.numel(),
+                    frame_word.data_ptr(), sid.data_ptr(), kind_u8.data_ptr(),
+                    kw_u8.data_ptr(), bit_rel.data_ptr(), prv.data_ptr(),
+                    code_u8.data_ptr(), band_tab.data_ptr(), band_tab.shape[0],
+                    pair.data_ptr(), inputs.data_ptr(), words.data_ptr(),
+                    kind93.data_ptr(), R)
+        return words, kind93
+
+
+def decode93_pcm_bank(words93, kind93, rows, mix, vol_shift, frame_sid, tabs,
+                      overlap0=None):
+    """1993-family session PCM on the card (csrc/decode93_pcm.cu, its
+    session instance): the session bank (decode93_bank's words93 [R, 160]
+    and kind93 [R]), rows [F, C] of it per output frame and voice and their
+    mixes, vol_shift [F] and frame_sid [F] -> pcm [F, 240] int32; see
+    decode93.session93_pcm_plain.  Counted and spanned as decode93_pcm (or
+    decode93_pcm_carry with overlap0, as there)."""
+    kernel = "decode93_pcm" if overlap0 is None else "decode93_pcm_carry"
+    with span(f"dcs.kernel.{kernel}"):
+        R = kind93.shape[0]
+        dev = words93.device
+        _check("words93", words93, torch.int32, (R, BANK93_WORDS))
+        _check("kind93", kind93, torch.uint8, (R,), dev)
+        _check("inputs", tabs["inputs"], torch.int32, (18,), dev)
+        if rows is None:
+            raise ValueError("rows: the session bank's instance takes rows")
+        F, C = _check_rows93(rows, mix, R, dev)
+        pcm, last_ov = _pcm93_out(F, dev, vol_shift, frame_sid, tabs,
+                                  overlap0)
+        # the kernel loads 8-byte words of each bank row
+        if words93.data_ptr() % 8:
+            raise ValueError("words93: not 8-byte aligned")
+        if F:
+            _launch(kernel, "dcs_decode93_pcm_bank", dev, words93.data_ptr(),
+                    kind93.data_ptr(), R, tabs["inputs"].data_ptr(),
+                    rows.data_ptr(), mix.data_ptr(), vol_shift.data_ptr(),
+                    frame_sid.data_ptr(),
                     *[tabs[name].data_ptr()
                       for name, _ in _DECODE93_PCM_TABLES],
                     None if overlap0 is None else overlap0.data_ptr(),
                     None if last_ov is None else last_ov.data_ptr(),
                     0 if overlap0 is None else overlap0.shape[0],
-                    pcm.data_ptr(), F, C, frame_word.shape[0])
+                    pcm.data_ptr(), F, C)
         return pcm if overlap0 is None else (pcm, last_ov)
 
 

@@ -235,12 +235,12 @@ _DECODERS = weakref.WeakKeyDictionary()
 
 def _session_decoder(bank, dev):
     """The cached session decoder of the bank on dev.  A decoder copies the
-    bank's rows (``scaled``, or the 1993 ``cols``) when it is built, and a
+    bank's rows (``scaled``, or the 1993 ``bank93``) when it is built, and a
     bank grows (``add``, then ``decode_all`` anew, which replaces them): a
     decoder built from other tensors than the bank's current ones is built
     again.  The cache holds those tensors weakly, so a replaced bank is
     not kept alive by it."""
-    now = list(bank.cols.values()) if bank.family93 else [bank.scaled]
+    now = list(bank.bank93.values()) if bank.family93 else [bank.scaled]
     per_device = _DECODERS.setdefault(bank, {})
     built = per_device.get(dev)
     if built is None or len(built[0]) != len(now) or any(

@@ -1,6 +1,8 @@
 """Port parity for decode93_pcm, the stage of every 1993 path (decode,
-inverse transform and overlap resolve in one), on the CPU, where
-decode93.decode93_pcm takes its plain version.  Inputs are made from a seed
+inverse transform and overlap resolve in one), on the CPU: its plain
+version decode93_pcm_plain, which both instances of the kernel are held
+against (decode93.decode93_pcm, the flat sweeps' stage, takes it on CPU
+tensors).  Inputs are made from a seed
 with numpy; every comparison is bit for bit on & $FFFF, against the JAX
 chain run on the CPU: decode93_frames / decode93a_frames per channel in
 channel order (device_decode93), transform93_raw, then
@@ -25,6 +27,14 @@ overlap_resolve93_flat or, with a carried state, overlap_resolve93 per run.
   voices;
 - the collection map is the 8-bit bit reversal, which the kernel's stores
   rely on;
+- the premise of the session instance: a row's session-bank words
+  (decode93_bank_plain), mixed with m of every class (0, 1, $7FFF, $8000,
+  $FFFF, random), give the serial chain's step of that voice on any words
+  before it; the bank's edges (repeat indices up to a band's last sample,
+  Type-1 ties, targets at word 255 and past it, silent bands and rows, a
+  short pool) against the serial chain at 1 and 6 voices; the session
+  path's plain version from the bank equals decode93_pcm_plain at C = 1,
+  2, 3, 6 and 8, flat and with carried states;
 - Flat93Pipeline and SessionDecoder93 with plain=True still equal the
   composition they ran before (decode93_fb_plain, then
   transform93_pcm_plain)."""
@@ -55,6 +65,17 @@ REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 ASSETS = os.path.join(REPO, "assets", "streams")
 TILE = kernels.DECODE93_PCM_TILE
 N_FRAMES = 2 * TILE + 3          # one frame count for all: shared compiles
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_torch_thread():
+    # the plain versions run many small ops; beside other test workers, a
+    # thread pool per op costs more than it gives (the session bank's tests
+    # took 0.3 s each alone and 33-42 s beside busy workers)
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")
@@ -95,9 +116,8 @@ def _jax_pcm(fb, vol, sid, ov0=None):
 def _port_pcm(cols, rows, mix, vol, sid, tabs, ov0=None):
     t = lambda a: torch.from_numpy(np.ascontiguousarray(a).astype(np.int32))
     before = dict(kernels.LAUNCHES)
-    got = td93.decode93_pcm(cols, None if rows is None else t(rows), t(mix),
-                            t(vol), t(sid), tabs,
-                            None if ov0 is None else t(ov0))
+    got = td93.decode93_pcm_plain(cols, t(rows), t(mix), t(vol), t(sid),
+                                  tabs, None if ov0 is None else t(ov0))
     assert kernels.LAUNCHES == before            # CPU tensors: no kernel
     if ov0 is None:
         return got.numpy(), None
@@ -200,8 +220,8 @@ def test_decode93_pcm_on_type1_widths_7_to_9_matches_the_scalar_decoder(tabs):
     s = stream93a_wide()
     cols = tcs.packed93_to_device(
         tcs.Flat93Sweep([s], True).compact_host_arrays(), "cpu")
-    pcm = td93.decode93_pcm(cols, None, cols["mix"], cols["vol"],
-                            cols["sid"], tabs)
+    pcm = td93.decode93_pcm(cols, cols["mix"], cols["vol"], cols["sid"],
+                            tabs)
     got = tpl.to_int16(pcm).reshape(-1).numpy()
     want = _scalar(s, trd.OS93A, 10)
     assert np.array_equal(want, got) and np.abs(want).max() > 0
@@ -392,3 +412,213 @@ def test_session_decoder93_plain_is_decode_then_transform(session93a, tabs):
     g_pcm, g_last = tpl.SessionDecoder93(tb, "cpu")(t(rows), t(mix), t(vol),
                                                    sid, ov0)
     assert torch.equal(w_pcm, g_pcm) and torch.equal(w_last, g_last)
+
+
+# -- the session bank ------------------------------------------------------------------
+
+def _np_cols(cols):
+    return {k: v.numpy().copy() for k, v in cols.items()}
+
+
+def _t_cols(cols):
+    return {k: torch.from_numpy(np.ascontiguousarray(v))
+            for k, v in cols.items()}
+
+
+def _random_chains(cols, rng):
+    """The bank's columns with random chain states and, on Type-1 rows'
+    bands with samples, random scale codes."""
+    c = _np_cols(cols)
+    c["prv"] = rng.integers(-(1 << 31), 1 << 31, c["prv"].shape).astype(
+        np.int32)
+    c["code_u8"] = np.where(c["code_u8"] == 0xFF, 0xFF, rng.integers(
+        0, 60, c["code_u8"].shape)).astype(np.uint8)
+    return c
+
+
+def _random_bands(c, rng, silent=0.0, kinds=range(6)):
+    """Every 93 band kind of ``kinds`` and width 1..24 at random on the 93
+    rows, and K_NONE on a further share ``silent`` of the bands."""
+    c = dict(c)
+    R = c["kw_u8"].shape[0]
+    kind = rng.choice(list(kinds), (R, 16))
+    kind[rng.random((R, 16)) < silent] = td93.K_NONE
+    kw = c["kw_u8"].astype(np.int64)
+    is93 = (c["kind_u8"] == td93.ROW_93)[:, None]
+    kw[:, :16] = np.where(is93, kind << 5 | rng.integers(1, 25, (R, 16)),
+                          kw[:, :16])
+    c["kw_u8"] = kw.astype(np.uint8)
+    return c
+
+
+def _edge_columns(cols, case, rng):
+    """The bank's columns (random chain states and scale codes) at one of
+    the bank's edges: "repeat" (most 93 bands repeat bands, so that the
+    repeat index runs to each band's last sample), "ties" (Type-1 scale
+    code 56: with mixes of $8000 eff is $2000, and every product of a
+    pair-table value = 2 mod 4 ties), "past255" (each 93 stream's bands
+    pre-incremented by 0..15 words, so that targets land on word 255 and
+    past it), "silent" (most 93 bands without samples, and whole rows
+    silent) and "short" (the pool cut inside the last rows' fields, whose
+    bits past it read as $FF)."""
+    c = _random_chains(cols, rng)
+    if case == "repeat":
+        c = _random_bands(c, rng, kinds=[td93.K_REPEAT] * 4 + [td93.K_DATA1])
+    elif case == "ties":
+        c["code_u8"] = np.where(c["code_u8"] == 0xFF, 0xFF, 56).astype(
+            np.uint8)
+    elif case == "past255":
+        tab = c["band_tab"].copy()
+        tab[:, :, 3] += rng.integers(0, 16, tab.shape[:2])
+        c["band_tab"] = tab
+        c = _random_bands(c, rng)
+    elif case == "silent":
+        c = _random_bands(c, rng, silent=0.7)
+        c["kw_u8"][::5, :16] = 0
+    else:
+        fw = c["frame_word"]
+        c["pool_u8"] = c["pool_u8"][:int(fw[-3]) * 4 + 37].copy()
+    return _t_cols(c)
+
+
+def _bank_and_rows(tb, cols, tabs, rng, F, C, mix_class=None):
+    """The session bank of the columns, and F x C rows of both kinds over
+    the bank (a fifth silent) with mixes of the class given (None: $8000
+    on Type-1 rows and $FFFF or $8001 on 93 rows, the folds' edges; else
+    0, 1, $7FFF, $8000, $FFFF or "random")."""
+    bank = td93.decode93_bank_plain(cols, tabs)
+    R = tb.total_rows()
+    rows = rng.integers(0, R, (F, C))
+    rows[rng.random((F, C)) < 0.2] = 0
+    kinds = cols["kind_u8"].numpy()[rows]
+    if mix_class is None:
+        mix = np.where(kinds == td93.ROW_93A, 0x8000,
+                       rng.choice([0xFFFF, 0x8001], (F, C)))
+    elif mix_class == "random":
+        mix = rng.integers(0, 1 << 16, (F, C))
+    else:
+        mix = np.full((F, C), mix_class)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a).astype(np.int32))
+    return bank, t(rows), t(mix)
+
+
+def _one_voice(cols, tabs, rows, mix, fb_prev):
+    """One voice of the serial chain (decode93_fb_plain's step): the 93
+    body, then the Type-1 body, of each frame's row on the words as they
+    stand."""
+    a93, a93a = td93.unpack_columns93(cols)
+    r = rows.long()
+    fb = td93.decode93_frames_plain(cols["pool_u8"],
+                                    {k: v[r] for k, v in a93.items()}, mix,
+                                    fb_prev)
+    return td93.decode93a.decode93a_frames_plain(
+        cols["pool_u8"], {k: v[r] for k, v in a93a.items()}, mix,
+        tabs["pair"], fb)
+
+
+@pytest.mark.parametrize("mix_class", [0, 1, 0x7FFF, 0x8000, 0xFFFF,
+                                       "random"])
+def test_session_bank_mixed_is_one_voice_of_the_serial_chain(
+        session93a, tabs, mix_class):
+    # the premise of the session instance: a row's words that do not
+    # depend on the mix (decode93_bank_plain), mixed with m, give the
+    # serial chain's step of that voice on any words before it (random
+    # words and words at $7FFF, $8000 and $FFFF), over words 0..255; on
+    # the bank's columns and on random chain states and band kinds
+    tb = session93a[1]
+    rng = np.random.default_rng(7 + (mix_class if mix_class != "random"
+                                     else 99))
+    F = 700
+    for cols in (tb.cols, _t_cols(_random_chains(tb.cols, rng)),
+                 _t_cols(_random_bands(_random_chains(tb.cols, rng), rng))):
+        bank, rows, mix = _bank_and_rows(tb, cols, tabs, rng, F, 1,
+                                         mix_class)
+        prev = rng.integers(0, 1 << 16, (F, 512))
+        prev[::3] = rng.choice([0x7FFF, 0x8000, 0xFFFF], (len(prev[::3]),
+                                                          512))
+        prev = torch.from_numpy(prev.astype(np.int32))
+        want = _one_voice(cols, tabs, rows[:, 0], mix[:, 0], prev)
+        got = td93.session93_fb_plain(bank, rows, mix, prev)
+        assert torch.equal(want[:, :256] & 0xFFFF, got[:, :256])
+        assert not got[:, 256:].any()
+
+
+@pytest.mark.parametrize("case", ["repeat", "ties", "past255", "silent",
+                                  "short"])
+def test_session_bank_on_its_edges_equals_the_serial_chain(session93a, tabs,
+                                                           case):
+    # the bank's edges (_edge_columns), folded at 1 and 6 voices with the
+    # folds' edge mixes, against the serial chain over words 0..255; the
+    # edge each case is for shows in the bank
+    tb = session93a[1]
+    rng = np.random.default_rng(len(case))
+    cols = _edge_columns(tb.cols, case, rng)
+    for C in (1, 6):
+        bank, rows, mix = _bank_and_rows(tb, cols, tabs, rng, 600, C)
+        want = td93.decode93_fb_plain(cols, rows, mix, tabs)
+        got = td93.session93_fb_plain(bank, rows, mix)
+        assert torch.equal(want[:, :256], got[:, :256])
+    words = bank["words93"].numpy().astype(np.int64) & 0xFFFFFFFF
+    lo = np.stack([words[:, :128] & 0xFFFF, words[:, :128] >> 16],
+                  -1).reshape(-1, 256)
+    kind = bank["kind93"].numpy()
+    if case == "repeat":
+        nib = (words[:, 128:, None] >> (4 * np.arange(8))) & 15
+        assert nib[kind == td93.BANK_93R].max() == 15
+    elif case == "ties":
+        pk = td93.s16(torch.from_numpy(lo[kind == td93.BANK_93A])).numpy()
+        assert ((pk * 2 * 0x2000) & 0xFFFF == 0x8000).any()
+    elif case == "past255":
+        assert (lo[np.isin(kind, [td93.BANK_93, td93.BANK_93R]), 255]
+                != 0).any()
+        a93, _ = td93.unpack_columns93(cols)
+        last = a93["out_start"] + (a93["n_samp"] - 1) * a93["out_inc"]
+        assert bool((last > 255).any())
+    elif case == "silent":
+        assert (lo[kind == td93.BANK_93] == 0).all(1).any()
+    else:
+        assert (td93.decode93_bank_plain(tb.cols, tabs)["words93"]
+                != bank["words93"]).any()
+
+
+@pytest.mark.parametrize("C", [1, 2, 3, 6, 8])
+@pytest.mark.parametrize("carry", [False, True])
+def test_session93_pcm_from_the_bank_equals_decode93_pcm(session93a, tabs, C,
+                                                         carry):
+    # the session path's plain version from session93a.zip's bank (built
+    # by StreamBank) against the columns' decode93_pcm_plain, flat and
+    # with random carried states over runs that cross the kernel's tile
+    tb = session93a[1]
+    F = N_FRAMES
+    rows, mix, vol, rng = _session_inputs(tb, C, F, 300 + 10 * C + carry)
+    sid = np.repeat(np.arange(F), rng.integers(1, 2 * TILE, size=F))[:F]
+    G = int(sid.max()) + 2
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a).astype(np.int32))
+    ov0 = t(rng.integers(0, 1 << 16, size=(G, 16))) if carry else None
+    args = (t(rows), t(mix), t(vol), t(sid))
+    want = td93.decode93_pcm_plain(tb.cols, *args, tabs, ov0)
+    before = dict(kernels.LAUNCHES)
+    got = td93.session93_pcm(tb.bank93, *args, tabs, ov0)
+    assert kernels.LAUNCHES == before            # CPU tensors: no kernel
+    for w, g in ((want, got),) if ov0 is None else zip(want, got):
+        assert torch.equal(w, g)
+
+
+def test_session_decoder93_holds_the_session_bank_alone(session93a, tabs):
+    # every row is banked: the session decoder holds StreamBank's session
+    # bank and the codec tables, and no bitstream or column of the bank
+    # (the session instance takes none), so what it decodes comes from
+    # the bank built once per ROM
+    tb = session93a[1]
+    dec = tpl.SessionDecoder93(tb, "cpu")
+    assert {n for n, _ in dec.named_buffers()} == \
+        {"words93", "kind93"} | set(tabs)
+    assert dec.words93.shape == (tb.total_rows(), td93.BANK_WORDS)
+    for k in ("words93", "kind93"):
+        assert torch.equal(getattr(dec, k), tb.bank93[k])
+    rows, mix, vol, _ = _session_inputs(tb, 6, 40, 5)
+    t = lambda a: torch.from_numpy(np.asarray(a).astype(np.int32))
+    sid = torch.zeros(40, dtype=torch.int32)
+    assert torch.equal(dec(t(rows), t(mix), t(vol), sid),
+                       td93.decode93_pcm_plain(tb.cols, t(rows), t(mix),
+                                               t(vol), sid, tabs))

@@ -25,13 +25,18 @@ sessions (past 64Ki bank rows) against its plain path; for the
 1993 family, bank rows of both kinds over random chain states and scale
 codes in C = 1, 6 and 8 voices, row 0 and all-silent frames, a pool that
 ends inside a frame, the transform-to-PCM kernel at its tile edges with and
-without a carried state, the fused decode93_pcm kernel on the same inputs
-plus every band kind and width at random, frame counts around its tile and
-streams that cross it (so the halo frame is decoded) at C = 1, 2, 3, 6
-and 8, its folds on Type-1 ties and 93 fix-ups that saturate at
-both ends at C = 2..8 with fields that cross the pool's end, the closed-form
-normalize of its square root on all 2^32 inputs, the flat sweep and a
-served batch on the card against the CPU; for the 1994+ encoder, the
+without a carried state, the fused decode93_pcm kernel (its columns'
+instance on the flat assets and on pools that end inside a frame; its
+session instance, against the columns' plain decode, on the session bank
+of the same random inputs plus every band kind and width at random, frame
+counts around its tile and streams that cross it (so the halo frame is
+decoded) at C = 1, 2, 3, 6 and 8, and of its folds on Type-1 ties and 93
+fix-ups that saturate at both ends at C = 2..8 with fields that cross the
+pool's end), the closed-form normalize of its square root on all 2^32
+inputs, the flat sweep and a served batch on the card against the CPU;
+the session bank (decode93_bank) against its plain version on
+session93a's bank, whose columns stay on the host, and on those random
+columns; for the 1994+ encoder, the
 three encoder kernels on random PCM and the adversarial full-scale set at
 frame counts around the 16-frame bucket and the kernels' tiles (the
 analysis at 63, 64, 65, 129 and 272 frames, one stream and 64, two calls
@@ -379,8 +384,8 @@ def test_sweep_on_the_card_equals_the_cpu_sweep(dev):
                         "transform94_pcm_carry": 0, "decode93_fb": 0,
                         "transform93_pcm": 0, "transform93_pcm_carry": 0,
                         "decode93_pcm": 0, "decode93_pcm_carry": 0,
-                        "encode94_analyze": 0, "encode94_decide": 0,
-                        "encode94_select": 0}
+                        "decode93_bank": 0, "encode94_analyze": 0,
+                        "encode94_decide": 0, "encode94_select": 0}
 
 
 # -- the session path --------------------------------------------------------
@@ -750,8 +755,8 @@ def test_session_server_on_the_card_equals_the_cpu_server(dev):
                         "transform94_pcm_carry": 0, "decode93_fb": 0,
                         "transform93_pcm": 0, "transform93_pcm_carry": 0,
                         "decode93_pcm": 0, "decode93_pcm_carry": 0,
-                        "encode94_analyze": 0, "encode94_decide": 0,
-                        "encode94_select": 0}
+                        "decode93_bank": 0, "encode94_analyze": 0,
+                        "encode94_decide": 0, "encode94_select": 0}
 
 
 # -- the 1993 family -----------------------------------------------------------
@@ -766,6 +771,13 @@ def rom93(dev):
     rs, _ = zipload.load_zip_file(SESSION93A_ZIP)
     assert rs.check() == 1
     return rs, romplay.build_rom_bank(rs, dev)
+
+
+@pytest.fixture(scope="module")
+def cols93(dev, rom93):
+    """session93a.zip's bank columns on the card (the bank keeps them on
+    the host)."""
+    return {k: v.to(dev) for k, v in rom93[1].cols.items()}
 
 
 def _flat93_columns(t1, dev):
@@ -809,7 +821,7 @@ def _random_columns(bank_cols, seed):
 
 
 @pytest.mark.parametrize("C", [1, 6, 8])
-def test_decode93_fb_kernel_on_random_rows(dev, tabs93, rom93, C):
+def test_decode93_fb_kernel_on_random_rows(dev, tabs93, rom93, cols93, C):
     # rows of both kinds and row 0 in every voice, mixes over the u16
     # range, frames past a block's end; the bank's own columns and random
     # chain states and scale codes
@@ -824,7 +836,7 @@ def test_decode93_fb_kernel_on_random_rows(dev, tabs93, rom93, C):
                         dtype=torch.int32)
     mix[16:20, 0] = torch.tensor([0, 0xFFFF, 0x8000, 0x7FFF], device=dev,
                                  dtype=torch.int32)
-    for cols in (bank.cols, _random_columns(bank.cols, C)):
+    for cols in (cols93, _random_columns(cols93, C)):
         want, got = _decode93_both(cols, rows, mix, tabs93)
         assert torch.equal(want, got)
         assert not got[:16].any()
@@ -973,10 +985,36 @@ def test_1993_session_server_on_the_card_equals_the_cpu_server(dev, rom93):
 
 # -- the fused 1993 kernel (decode93_pcm) ------------------------------------
 
+def _session_bank(cols, tabs93):
+    """The session bank of the columns on the card, held against its plain
+    version; one decode93_bank launch."""
+    before = kernels.LAUNCHES["decode93_bank"]
+    bank = d93.decode93_bank(cols, tabs93)
+    torch.cuda.synchronize()
+    assert kernels.LAUNCHES["decode93_bank"] == before + 1
+    want = d93.decode93_bank_plain(cols, tabs93)
+    assert torch.equal(want["words93"], bank["words93"])
+    assert torch.equal(want["kind93"], bank["kind93"])
+    return bank
+
+
 def _decode93_pcm_both(cols, rows, mix, vol, sid, tabs93, ov0=None):
+    """(plain, kernel) pairs of decode93_pcm against decode93_pcm_plain on
+    the columns: rows None, the columns' instance (the flat sweep); rows
+    given, the session instance on the columns' session bank (the bank
+    built first, outside the launches counted: one decode93_pcm launch, or
+    decode93_pcm_carry with ov0, and none of decode93_bank a batch)."""
     want = d93.decode93_pcm_plain(cols, rows, mix, vol, sid, tabs93, ov0)
-    got = kernels.decode93_pcm(*(cols[k] for k in d93.COLUMNS), rows, mix,
-                               vol, sid, tabs93, ov0)
+    if rows is None:
+        assert ov0 is None
+        got = kernels.decode93_pcm(*(cols[k] for k in d93.COLUMNS), mix, vol,
+                                   sid, tabs93)
+    else:
+        bank = _session_bank(cols, tabs93)
+        before = dict(kernels.LAUNCHES)
+        got = d93.session93_pcm(bank, rows, mix, vol, sid, tabs93, ov0)
+        key = "decode93_pcm" if ov0 is None else "decode93_pcm_carry"
+        assert _launched(before) == {key: 1}
     torch.cuda.synchronize()
     if ov0 is None:
         return [(want, got)]
@@ -1014,7 +1052,8 @@ T93P = kernels.DECODE93_PCM_TILE
 
 @pytest.mark.parametrize("C", [1, 2, 3, 6, 8])
 @pytest.mark.parametrize("n", [1, T93P - 1, T93P, T93P + 1, 65, 197])
-def test_decode93_pcm_kernel_on_random_rows(dev, tabs93, rom93, C, n):
+def test_decode93_pcm_kernel_on_random_rows(dev, tabs93, rom93, cols93, C,
+                                           n):
     # rows of both kinds and row 0 in every voice, mixes over the u16 range;
     # the bank's columns, random chain states and scale codes, and random
     # band kinds, most of them silent or not; sessions of one frame, runs
@@ -1035,8 +1074,8 @@ def test_decode93_pcm_kernel_on_random_rows(dev, tabs93, rom93, C, n):
     runs = np.repeat(np.arange(n), rng.integers(1, 2 * T93P, size=n))[:n]
     edges = np.searchsorted([T93P - 1, T93P, T93P + 1], np.arange(n),
                             "right")
-    rand = _random_columns(bank.cols, C)
-    for cols in (bank.cols, rand, _random_kinds(rand, C),
+    rand = _random_columns(cols93, C)
+    for cols in (cols93, rand, _random_kinds(rand, C),
                  _random_kinds(rand, C, 0.6)):
         for sid in (np.zeros(n), np.arange(n), runs, 2 * edges + 1):
             sid_t = torch.tensor(sid.astype(np.int32), device=dev)
@@ -1093,12 +1132,12 @@ def _order_rule_inputs(cols, C, dev):
 
 @pytest.mark.parametrize("C", range(2, 9))
 def test_decode93_pcm_folds_on_ties_and_saturating_fixups(
-        dev, tabs93, rom93, monkeypatch, C):
+        dev, tabs93, cols93, monkeypatch, C):
     # the folds' order rules (_order_rule_inputs): Type-1 ties on the
     # running word and 93 fix-ups that saturate at both ends (the plain
     # version's clamps counted), voices of both kinds in every order,
     # fields that cross the pool's end; flat and with a carried state
-    cols, rows, mix, vol, rng = _order_rule_inputs(rom93[1].cols, C, dev)
+    cols, rows, mix, vol, rng = _order_rule_inputs(cols93, C, dev)
     kind = cols["kind_u8"][rows.long()]
     assert bool((kind == d93.ROW_93).any()) and bool(
         (kind == d93.ROW_93A).any())
@@ -1159,9 +1198,8 @@ def test_decode93_pcm_wrapper_refuses_bad_tensors(dev, tabs93):
     args = [cols[k] for k in d93.COLUMNS]
     F = cols["frame_word"].shape[0]
 
-    def run(args=args, rows=None, mix=cols["mix"], vol=cols["vol"],
-            sid=cols["sid"], ov0=None):
-        return kernels.decode93_pcm(*args, rows, mix, vol, sid, tabs93, ov0)
+    def run(args=args, mix=cols["mix"], vol=cols["vol"], sid=cols["sid"]):
+        return kernels.decode93_pcm(*args, mix, vol, sid, tabs93)
 
     bad = list(args)
     bad[0] = cols["pool_u8"][1:]
@@ -1179,15 +1217,68 @@ def test_decode93_pcm_wrapper_refuses_bad_tensors(dev, tabs93):
         run(vol=torch.zeros((F, 2), dtype=torch.int32, device=dev)[:, 0])
     with pytest.raises(ValueError, match="CUDA"):
         run(vol=cols["vol"].cpu())
+    with pytest.raises(ValueError, match="shape"):        # one mix a row
+        run(mix=cols["mix"][1:])
+
+
+def test_decode93_bank_kernel_on_the_session93a_bank(dev, tabs93, rom93,
+                                                    cols93):
+    # the session bank of session93a.zip on the card against its plain
+    # version, one decode93_bank launch a build, the columns left on the
+    # host; then on random chain states and scale codes, every 93 band kind
+    # and width at random (most bands silent or not), and fields moved to
+    # the pool's end
+    rs, _ = rom93
+    before = dict(kernels.LAUNCHES)
+    built = romplay.build_rom_bank(rs, dev)
+    torch.cuda.synchronize()
+    assert _launched(before) == {"decode93_bank": 1}
+    assert {v.device.type for v in built.cols.values()} == {"cpu"}
+    assert {v.device.type for v in built.bank93.values()} == {"cuda"}
+    want = d93.decode93_bank_plain(cols93, tabs93)
+    for k in ("words93", "kind93"):
+        assert torch.equal(want[k], built.bank93[k])
+    kinds = torch.bincount(built.bank93["kind93"].long(), minlength=4)
+    assert kinds[d93.BANK_93] > 0 and kinds[d93.BANK_93A] > 0
+    assert kinds[d93.BANK_93R] > 0
+    rand = _random_columns(cols93, 7)
+    for cols in (rand, _random_kinds(rand, 7), _random_kinds(rand, 7, 0.6),
+                 _far_fields(rand, 7)):
+        assert bool((_session_bank(cols, tabs93)["kind93"]
+                     == d93.BANK_93R).any())
+
+
+def test_decode93_pcm_bank_wrapper_refuses_bad_tensors(dev, tabs93, rom93):
+    bank = rom93[1].bank93
+    R = bank["kind93"].shape[0]
+    rows = torch.ones((4, 2), dtype=torch.int32, device=dev)
+    vs = torch.zeros(4, dtype=torch.int32, device=dev)
+
+    def run(words=bank["words93"], kind=bank["kind93"], rows=rows,
+            mix=rows, ov0=None):
+        return kernels.decode93_pcm_bank(words, kind, rows, mix, vs, vs,
+                                         tabs93, ov0)
+
+    assert run().shape == (4, 240)
+    with pytest.raises(ValueError, match="rows"):
+        run(rows=None)
+    with pytest.raises(ValueError, match="shape"):
+        run(words=bank["words93"][:, :128].contiguous())
+    with pytest.raises(TypeError):
+        run(kind=bank["kind93"].int())
+    skewed = torch.zeros(R * 160 + 1, dtype=torch.int32, device=dev)[1:]
+    with pytest.raises(ValueError, match="aligned"):
+        run(words=skewed.view(R, 160))
     nine = torch.zeros((4, 9), dtype=torch.int32, device=dev)
     with pytest.raises(ValueError, match="channels"):
         run(rows=nine, mix=nine)
+    with pytest.raises(ValueError, match="CUDA"):
+        run(mix=rows.cpu())
     with pytest.raises(ValueError, match="shape"):
         run(ov0=torch.zeros((2, 8), dtype=torch.int32, device=dev))
     skewed = torch.zeros(2 * 16 + 1, dtype=torch.int32, device=dev)[1:]
     with pytest.raises(ValueError, match="aligned"):
         run(ov0=skewed.view(2, 16))
-
 
 
 # ----------------------------------------------------------------------

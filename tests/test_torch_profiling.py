@@ -142,11 +142,17 @@ def _launch_spans():
     return out
 
 
+# keys that two wrappers count: decode93_pcm's columns' instance
+# (kernels.decode93_pcm, the flat sweep's) and its session instance
+# (decode93_pcm_bank, which alone counts decode93_pcm_carry)
+SHARED_KEYS = {"decode93_pcm": 2}
+
+
 @pytest.mark.parametrize("key", sorted(kernels.LAUNCHES))
 def test_each_counted_launch_has_its_kernel_span(key):
     spans = _launch_spans()
     assert set(spans) == set(kernels.LAUNCHES)
-    assert spans[key] == [f"dcs.kernel.{key}"]
+    assert spans[key] == [f"dcs.kernel.{key}"] * SHARED_KEYS.get(key, 1)
 
 
 def test_no_record_function_outside_the_span_helper():
