@@ -521,6 +521,33 @@ def main():
 
     dev = torch.device("cuda", 0)
 
+    def plain_flat94(pipe, a):
+        """FlatPipeline's stages through their plain versions on the
+        tensors' device."""
+        tabs = dict(pipe.named_buffers())
+        fb = bd.decode94_fb_plain(a["pool_u8"], a["sid"], a["start_bit"].int(),
+                                  a["bt_u8"], a["mix_u16"].int(), a["hdr_tab"],
+                                  a["fmt_tab"], a["sub_tab"], a["n_steps"],
+                                  tabs)
+        return tf.transform94_pcm_plain(fb, a["vol_u8"].int(), a["sid"], tabs)
+
+    def plain_serve_one(srv, events):
+        """One batch of a SessionServer through the plain versions of its
+        stages on the server's device: int16 PCM [S, T * 240] (numpy)."""
+        S, T, C = srv.n_sessions, srv.n_frames, srv.n_ch
+        wire, E = srv.prepare(events)
+        rows, mix, vol = romplay.segments94_plain(
+            torch.from_numpy(wire).to(srv.device), S, T, C, E)
+        bufs = dict(srv.decoder.named_buffers())
+        if srv.bank.family93:
+            words = d93.session93_pcm_plain(bufs, rows, mix, vol, srv._sid,
+                                            bufs)
+        else:
+            words = tf.transform94_pcm_plain(
+                bd.session_mix94_plain(bufs["scaled"], rows, mix), vol,
+                srv._sid, bufs)
+        return pipeline.to_int16(words.reshape(S, T * 240)).cpu().numpy()
+
     # 1. card and build
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -730,7 +757,7 @@ def main():
         raise AssertionError(f"a kernel of the path did not launch: {launches}")
     for k, r in results.items():
         r["launches"] = launches[k]
-    plain_pipe = fs.FlatPipeline(dev, plain=True)
+    plain_pipe = lambda **a: plain_flat94(pipe, a)
     pcm_plain = plain_pipe(**args)
     err = _max_abs_err(pcm, pcm_plain)
     if err != 0 or pcm.shape != (n_frames, 240):
@@ -884,8 +911,8 @@ def main():
 
     # 8. the batch against the plain path on the card and the scalar decoder
     with romplay.SessionServer(rs, S, T, n_ch=C, seg_e=SEG_E, bank=bank,
-                               device=dev, plain=True) as plain_srv:
-        want = plain_srv.serve_one(batch)
+                               device=dev) as plain_srv:
+        want = plain_serve_one(plain_srv, batch)
     if not np.array_equal(want, got):
         bad = np.argwhere(want != got)
         raise AssertionError(f"session batch != plain batch at {bad.shape[0]}"
@@ -1075,7 +1102,9 @@ def main():
                               pack_s=pack_s,
                               unpack_s=time.perf_counter() - t0)
     pipe93 = cs.Flat93Pipeline(dev)
-    plain93 = cs.Flat93Pipeline(dev, plain=True)
+    tabs93 = dict(pipe93.named_buffers())
+    plain93 = lambda mix, vol, **c: d93.decode93_pcm_plain(c, None, mix, vol,
+                                                           c["sid"], tabs93)
     for k in kernels.LAUNCHES:
         kernels.LAUNCHES[k] = 0
     for sw93 in sweeps93.values():
@@ -1133,7 +1162,9 @@ def main():
         pos = 0
         for s93 in sw93["streams"]:
             nf = (s93[0] << 8) | s93[1]
-            want = cs.reference_pcm93(s93, nf, sw93["t1"])
+            want = fs.reference_pcm(s93, nf,
+                                    rd.OS93A if sw93["t1"] else rd.OS93B,
+                                    cs.MIXING_LEVEL, cs.MASTER_VOLUME)
             seg = got[pos:pos + nf * 240]
             if not np.array_equal(want, seg) or not np.abs(want).max() > 0:
                 bad = np.nonzero(want != seg)[0]
@@ -1179,9 +1210,7 @@ def main():
                              f"{s93_launches}")
     if got93.shape != (S, T * 240) or got93.dtype != np.int16:
         raise AssertionError(f"session93a batch {got93.shape} {got93.dtype}")
-    with romplay.SessionServer(rs93, S, T, n_ch=C, seg_e=SEG_E, bank=bank93,
-                               device=dev, plain=True) as plain_srv:
-        want = plain_srv.serve_one(batch)
+    want = plain_serve_one(srv93, batch)
     if not np.array_equal(want, got93):
         bad = np.argwhere(want != got93)
         raise AssertionError(f"session93a batch != plain batch at "
@@ -1227,7 +1256,6 @@ def main():
     # 12. the 1993 kernels against their plain versions at the paths' shapes:
     # decode93_pcm, and the pair it replaced (decode93_fb, transform93_pcm,
     # on no path) as its yardstick in the same run
-    tabs93 = dict(pipe93.named_buffers())
     inputs93 = tabs93["inputs"].long()
     t0 = time.perf_counter()
     bad = kernels.normalize93_check(dev)
@@ -2259,8 +2287,11 @@ def main():
     mesh22 = psweep.make_mesh([dev] * 4, frame_shards=2)
     got22, l22 = driven(lambda: psweep.sharded_sweep(mesh22, padded),
                         {"decode94_fb": 4, "transform94_pcm": 4})
-    plain22 = batched.batch_decode(*pargs, plain=True)
+    # the plain path: the four streams alone on the CPU (a padded stream's
+    # rows depend on it alone)
+    plain22 = batched.batch_decode(*batched.SweepInputs(legacy).args("cpu"))
     Sp, Fp = padded.rel_start.shape
+    plain22 = plain22.repeat(Sp // len(legacy), 1, 1).to(dev)
     for label, a in (("sharded", got22), ("plain", plain22)):
         err = _max_abs_err(a, single)
         if err != 0 or a.shape != (Sp, Fp, 240):
@@ -2462,8 +2493,8 @@ def main():
     mix6 = np.zeros(h6[0].shape[:2], np.int32)
     vol6 = np.zeros(h6[0].shape[:2], np.int32)
     for k, (a, nf) in enumerate(zip(assets, h6[4])):
-        mix6[k, :nf], vol6[k, :nf] = fs.FlatSweep._trace(
-            a, nf, fs.MIXING_LEVEL, fs.MASTER_VOLUME)
+        mix6[k, :nf], vol6[k, :nf] = fs.trace_standalone(
+            a, nf, rd.OS94, fs.MIXING_LEVEL, fs.MASTER_VOLUME)
     for k in kernels.LAUNCHES:
         kernels.LAUNCHES[k] = 0
     pcm6 = batched.hybrid_batch_device(*h6[:4], mix6, vol6)
@@ -3184,8 +3215,8 @@ def main():
         raise AssertionError(f"the full title's batch did not run once "
                              f"through segments94_rows32: {w23}")
     with romplay.SessionServer(rs23, S, T, n_ch=C, seg_e=SEG_E, bank=bank23,
-                               device=dev, plain=True) as plain23:
-        want23 = plain23.decode_wire(wire23, E23).cpu().numpy()
+                               device=dev) as plain23:
+        want23 = plain_serve_one(plain23, batch23)
     if not np.array_equal(want23, got23):
         bad = np.argwhere(want23 != got23)
         raise AssertionError(f"full-title batch != plain batch at "

@@ -26,8 +26,8 @@ So each stream's rows must be consecutive frames of it, each followed only
 by copies of itself: a row that differs from the row before it has that
 row's band types as its band_type_prev.  SweepInputs's arrays are so.  On
 CUDA tensors the two stages are the hand-written kernels
-(``ops/kernels.py``); on CPU tensors, or with ``plain=True``, their plain
-PyTorch versions.  Band types must fit in uint8, the compact columns' type.
+(``ops/kernels.py``); on CPU tensors, their plain PyTorch versions.  Band
+types must fit in uint8, the compact columns' type.
 Bit-exact with the JAX reference on every row, pad rows included.
 
 The host-decode hybrid (``hybrid_host_stage``, ``hybrid_batch_device``,
@@ -49,7 +49,8 @@ from .. import native
 from ..ops import band_decode as bd
 from ..ops import kernels, prescan
 from ..ops import transform as tf
-from .flatsweep import FlatSweep, _device, codec_tables
+from ..refdec import decoder as rd
+from .flatsweep import _device, codec_tables, n_steps94, trace_standalone
 
 
 @functools.lru_cache(maxsize=None)
@@ -69,7 +70,7 @@ def check_band_types(band_type, band_type_prev):
 
 def padded_pcm(stream_bytes, rel_start, headers, fmt_type, sub_type,
                band_type, band_type_prev, mix, vol_shift, n_steps,
-               plain=False, overlap0=None):
+               overlap0=None):
     """The model's three steps on tensors of one device (band types
     already checked): stream_bytes [S, L] bytes (any integer type);
     rel_start, mix, vol_shift [S, F]; headers [S, 16]; band_type(_prev)
@@ -83,8 +84,6 @@ def padded_pcm(stream_bytes, rel_start, headers, fmt_type, sub_type,
     if S * L + 8 >= kernels.MAX_POOL_BYTES:
         raise ValueError(f"{S} streams of {L} bytes: the pool takes fewer "
                          f"than 2^28")
-    decode = bd.decode94_fb_plain if plain else bd.decode94_fb
-    to_pcm = tf.transform94_pcm_plain if plain else tf.transform94_pcm
     streams = torch.arange(S, dtype=torch.int32, device=dev)
     pool = torch.cat([stream_bytes.reshape(-1).to(torch.uint8),
                       torch.full((8,), 0xFF, dtype=torch.uint8, device=dev)])
@@ -94,10 +93,11 @@ def padded_pcm(stream_bytes, rel_start, headers, fmt_type, sub_type,
     bt = torch.cat([band_type_prev[:, :1], band_type], 1).to(torch.uint8)
     mix_rows = torch.cat([torch.zeros_like(mix[:, :1]), mix], 1).int()
     per_stream = lambda v: torch.full((S,), v, dtype=torch.uint8, device=dev)
-    fb = decode(pool, streams.repeat_interleave(F + 1), start.reshape(-1),
-                bt.reshape(-1, 16), mix_rows.reshape(-1),
-                headers.to(torch.uint8), per_stream(fmt_type),
-                per_stream(sub_type), n_steps, tabs)
+    fb = bd.decode94_fb(pool, streams.repeat_interleave(F + 1),
+                        start.reshape(-1), bt.reshape(-1, 16),
+                        mix_rows.reshape(-1), headers.to(torch.uint8),
+                        per_stream(fmt_type), per_stream(sub_type), n_steps,
+                        tabs)
     # each row's frame buffer: that of the last row at or before it that
     # differs from the row before it
     same = ((rs[:, 1:] == rs[:, :-1]) & (mix[:, 1:] == mix[:, :-1])
@@ -107,29 +107,28 @@ def padded_pcm(stream_bytes, rel_start, headers, fmt_type, sub_type,
     new = torch.cat([torch.ones_like(same[:, :1]), ~same], 1)
     src = torch.cummax(torch.where(new, j, 0), 1).values + 1 \
         + (F + 1) * streams.long()[:, None]
-    return to_pcm(fb[src.reshape(-1)], vol_shift.reshape(-1).int(),
-                  streams.repeat_interleave(F), tabs, overlap0)
+    return tf.transform94_pcm(fb[src.reshape(-1)],
+                              vol_shift.reshape(-1).int(),
+                              streams.repeat_interleave(F), tabs, overlap0)
 
 
 def batch_decode(stream_bytes, rel_start, headers, fmt_type, sub_type,
-                 band_type, band_type_prev, mix, vol_shift, n_steps=256,
-                 plain=False):
+                 band_type, band_type_prev, mix, vol_shift, n_steps=256):
     """Catalog sweep over a padded stream batch (tensors of one device, as
     SweepInputs.args makes them): stream_bytes [S, L]; rel_start [S, F];
     headers [S, 16]; band_type(_prev) [S, F, 16]; mix/vol_shift [S, F];
-    fmt_type/sub_type one format family.  ``plain`` runs the plain
-    versions of the kernels on any device.  Returns pcm [S, F, 240] int32
+    fmt_type/sub_type one format family.  Returns pcm [S, F, 240] int32
     (u16 storage)."""
     check_band_types(band_type, band_type_prev)
     S, F = rel_start.shape
     return padded_pcm(stream_bytes, rel_start, headers, fmt_type, sub_type,
-                      band_type, band_type_prev, mix, vol_shift, n_steps,
-                      plain).reshape(S, F, 240)
+                      band_type, band_type_prev, mix, vol_shift,
+                      n_steps).reshape(S, F, 240)
 
 
 def stream_decode(stream_bytes, rel_start, header, fmt_type, sub_type,
                   band_type, band_type_prev, mix, vol_shift, overlap0,
-                  n_steps=256, plain=False):
+                  n_steps=256):
     """Decode F consecutive frames of one stream from a carried overlap
     state: stream_bytes [L]; rel_start, mix, vol_shift [F]; header [16];
     band_type(_prev) [F, 16]; overlap0 [16].  Returns (pcm [F, 240],
@@ -139,7 +138,7 @@ def stream_decode(stream_bytes, rel_start, header, fmt_type, sub_type,
     pcm, last = padded_pcm(
         stream_bytes[None], rel_start[None], header[None], fmt_type,
         sub_type, band_type[None], band_type_prev[None], mix[None],
-        vol_shift[None], n_steps, plain, ov0)
+        vol_shift[None], n_steps, ov0)
     return pcm, last[0]
 
 
@@ -172,7 +171,8 @@ class SweepInputs:
                               dtype=np.uint8)[:L]
             sb[k, :b.size] = b
             n = i.n_frames
-            m, v = FlatSweep._trace(s, n, mixing_level, master_volume)
+            m, v = trace_standalone(s, n, rd.OS94, mixing_level,
+                                    master_volume)
             hd[k] = i.header
             # pad rows repeat the last frame
             for out, col in ((rs, i.start_bit), (bt, i.band_type),
@@ -181,8 +181,7 @@ class SweepInputs:
                 out[k, n:] = out[k, n - 1]
         self.fmt_type = int(idxs[0].fmt_type)
         self.sub_type = int(idxs[0].sub_type)
-        max_dense = max(int(prescan.scan_totals(i).max()) for i in idxs)
-        self.n_steps = min(256, (max_dense + 7) & ~7)
+        self.n_steps = n_steps94(idxs)
         self.stream_bytes = sb
         self.rel_start = rs
         self.headers = hd
@@ -245,34 +244,34 @@ def upload(a, dev):
 
 
 def hybrid_batch_device(dense, scale, fb_idx, valid, mix, vol_shift,
-                        device="cuda", plain=False):
+                        device="cuda"):
     """The hybrid's device stage over a stream batch: dense, scale, fb_idx,
     valid [S, F, 256] (hybrid_host_stage's), mix and vol_shift [S, F].
     One dequant_mix_dense over the S x F rows, then one transform94_pcm
     with sid = stream, each stream from a zero overlap state.  Tensors
     stay on their device (one for all); numpy arrays go to ``device``
-    (the card unless given).  On CPU tensors, or with ``plain=True``, the
-    plain versions run.  Returns pcm [S, F, 240] int32 (u16 storage)."""
+    (the card unless given).  On CPU tensors the plain versions run.
+    Returns pcm [S, F, 240] int32 (u16 storage)."""
     args = (dense, scale, fb_idx, valid, mix, vol_shift)
     on_dev = [a.device for a in args if isinstance(a, torch.Tensor)]
     dev = on_dev[0] if on_dev else _device(device)
     dense, scale, fb_idx, valid, mix, vol_shift = (
         a if isinstance(a, torch.Tensor) else upload(a, dev) for a in args)
     S, F = mix.shape
-    dequant = bd.dequant_mix_dense_plain if plain else bd.dequant_mix_dense
-    to_pcm = tf.transform94_pcm_plain if plain else tf.transform94_pcm
-    fb = dequant(dense.reshape(S * F, 256),
-                 (scale.reshape(S * F, 256), fb_idx.reshape(S * F, 256),
-                  valid.reshape(S * F, 256)), mix.reshape(S * F).int())
+    fb = bd.dequant_mix_dense(
+        dense.reshape(S * F, 256),
+        (scale.reshape(S * F, 256), fb_idx.reshape(S * F, 256),
+         valid.reshape(S * F, 256)), mix.reshape(S * F).int())
     sid = torch.arange(S, dtype=torch.int32, device=dev).repeat_interleave(F)
-    pcm = to_pcm(fb, vol_shift.reshape(S * F).int(), sid, _tables(dev))
+    pcm = tf.transform94_pcm(fb, vol_shift.reshape(S * F).int(), sid,
+                             _tables(dev))
     return pcm.reshape(S, F, 240)
 
 
 def hybrid_stage_device(dense, scale, fb_idx, valid, mix, vol_shift,
-                        device="cuda", plain=False):
+                        device="cuda"):
     """The hybrid's device stage for one stream: dense, scale, fb_idx,
     valid [F, 256], mix and vol_shift [F] -> pcm [F, 240] int32 (u16
     storage), from a zero overlap state (hybrid_batch_device of one)."""
     return hybrid_batch_device(*(a[None] for a in (
-        dense, scale, fb_idx, valid, mix, vol_shift)), device, plain)[0]
+        dense, scale, fb_idx, valid, mix, vol_shift)), device)[0]

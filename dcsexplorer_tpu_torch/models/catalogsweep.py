@@ -17,8 +17,8 @@ frame.  The sweep runs
 with the device part as ``Flat93Pipeline`` (an ``nn.Module`` whose buffers
 are the codec tables of ``codec_tables93``).  On CUDA tensors the stage is
 a hand-written kernel (``ops/kernels.py``); on CPU tensors its plain
-PyTorch version runs.  The session bank of ``models/pipeline.py`` builds the
-same columns over a ROM's streams (``stream_columns``, ``rows93``).
+PyTorch version runs.  ``pool_columns93`` lays out the decode columns of
+both this sweep and the 1993 session bank of ``models/pipeline.py``.
 ``catalog_pipeline`` runs a mixed 94 + 93b + 93a-Type-1 catalog through
 both pipelines and sums the families' PCM checksums.  The entry points run
 on the card unless the caller names another device.  Bit-exact with the JAX
@@ -33,8 +33,7 @@ from ..format import tables as T
 from ..ops import decode93, decode93a
 from ..refdec import decoder as rd
 from ..utils.profiling import span
-from ..vm import native_tracer as nt
-from .flatsweep import _device, to_int16
+from .flatsweep import _device, to_int16, trace_standalone
 
 _SCALE_MANT = np.asarray(T.SCALE_MANTISSA, dtype=np.int64)
 # standalone playback settings of the sweep (the reference's defaults)
@@ -56,34 +55,6 @@ def codec_tables93():
             "pair": decode93a.PAIR, "inputs": decode93a.INPUTS}
     return {k: torch.tensor(np.ascontiguousarray(v).astype(np.int32))
             for k, v in tabs.items()}
-
-
-def _trace_standalone(stream, n_frames, os_version, mixing_level,
-                      master_volume):
-    """Per-frame (mix multiplier, volume shift) of channel 0 for standalone
-    playback, from the native runtime VM."""
-    tr = nt.NativeControlTracer(stream, default_volume=master_volume,
-                                standalone_os=os_version)
-    try:
-        tr.soft_boot()
-        tr.load_audio_stream(0, 0, mixing_level=mixing_level)
-        _, _, out_m, out_v = tr.trace_frames(n_frames)
-    finally:
-        tr.close()
-    return out_m[:, 0].astype(np.int32), out_v.astype(np.int32)
-
-
-def reference_pcm93(stream, n_frames, t1, mixing_level=MIXING_LEVEL,
-                    master_volume=MASTER_VOLUME):
-    """int16 PCM of one stream from the scalar reference decoder, at the
-    standalone-playback settings Flat93Sweep traces (OS93a for the Type-1
-    wire, OS93b otherwise)."""
-    dec = rd.ReferenceDecoder()
-    dec.default_volume = master_volume
-    dec.init_standalone(rd.OS93A if t1 else rd.OS93B)
-    dec.soft_boot()
-    dec.load_audio_stream(0, bytes(stream), mixing_level=mixing_level)
-    return np.array(dec.next_samples(n_frames * 240), dtype=np.int16)
 
 
 def _stream93_band_tables(stream):
@@ -205,70 +176,81 @@ def rows93(c, t1):
                 kw_u8=kw, bit_rel=rel, prv=prv.view(np.int32), code_u8=code)
 
 
+def _check_layout(tab, idx):
+    """The device recomputes each frame's output layout (out_start,
+    out_inc, n_samp) from the stream's band tables ``tab``; check the
+    reconstruction against the walker's index once per stream."""
+    n = tab["n"].astype(np.int64)[None, :]
+    kindm = idx.kind
+    adv = tab["pre"].astype(np.int64)[None, :] + np.where(
+        kindm == decode93.K_NONE, tab["skip"].astype(np.int64)[None, :],
+        n * tab["inc"].astype(np.int64)[None, :]
+        + tab["fix"].astype(np.int64)[None, :])
+    start = 1 + np.cumsum(adv, axis=1) - adv \
+        + tab["pre"].astype(np.int64)[None, :]
+    used = kindm != decode93.K_NONE
+    inc = np.broadcast_to(tab["inc"].astype(np.int64)[None, :],
+                          kindm.shape)
+    if not (np.array_equal(start[used], idx.out_start[used])
+            and np.array_equal(np.broadcast_to(n, kindm.shape)[used],
+                               idx.n_samp[used])
+            and np.array_equal(inc[used], idx.out_inc[used])):
+        raise ValueError("the band tables' layout differs from the "
+                         "walker's")
+
+
+def pool_columns93(bodies, idxs, t1s, origins):
+    """The decode columns of 1993-family streams (numpy), the layout every
+    1993 decode reads.  ``bodies[k]`` holds a stream from its header on (at
+    least the bytes its frames read); ``idxs[k]`` is its index by the
+    walker of its kind (prescan93a where ``t1s[k]``, the OS93a Type-1 wire;
+    prescan93 otherwise), taken at byte ``origins[k]`` of the buffer the
+    body was cut from.  The bodies enter one byte pool, each followed by 8
+    $FF bytes, and 8 more close it.  Returns (pool_u8, each stream's
+    stream_columns at its bit base in the pool, each stream's band tables
+    checked against its index, None for a Type-1 stream)."""
+    bufs, cols, tabs = [], [], []
+    pos = 0
+    for body, idx, t1, o in zip(bodies, idxs, t1s, origins):
+        cols.append(stream_columns(idx, t1, (pos - o) * 8))
+        tab = None
+        if not t1:
+            tab = _stream93_band_tables(body)[1]
+            _check_layout(tab, idx)
+        tabs.append(tab)
+        body = bytes(body)
+        bufs += [body, b"\xff" * 8]
+        pos += len(body) + 8
+    bufs.append(b"\xff" * 8)
+    return np.frombuffer(b"".join(bufs), dtype=np.uint8), cols, tabs
+
+
 class Flat93Sweep:
     """Host packing of a 1993-family catalog onto one flat frame axis.
 
     ``t1`` selects the OS93a Type-1 walker; otherwise the 93b / 93a Type-0
     walker (both subfamilies share the decompressor).  Per stream the
     native indexer records the per-band decode controls and the native VM
-    traces mix and volume, at the reference's standalone settings."""
+    traces mix and volume, at the reference's standalone settings;
+    pool_columns93 lays out the decode columns."""
 
     def __init__(self, streams, t1, mixing_level=MIXING_LEVEL,
                  master_volume=MASTER_VOLUME):
         self.t1 = t1
         os_v = rd.OS93A if t1 else rd.OS93B
-        idxs, offs, bufs = [], [], []
-        pos = 0
-        for s in streams:
-            idxs.append(decode93a.prescan93a(s, 0) if t1
-                        else decode93.prescan93(s, 0))
-            offs.append(pos)
-            body = bytes(s)
-            bufs.append(body)
-            bufs.append(b"\xff" * 8)
-            pos += len(body) + 8
-        bufs.append(b"\xff" * 8)
-        self.pool_u8 = np.frombuffer(b"".join(bufs), dtype=np.uint8)
-
-        cols, tabs = [], []
-        for k, (s, idx) in enumerate(zip(streams, idxs)):
-            F = idx.n_frames
-            mix, vol = _trace_standalone(s, F, os_v, mixing_level,
-                                         master_volume)
-            c = stream_columns(idx, t1, offs[k] * 8)
-            c.update(n_frames=F, mix=mix, vol=vol)
-            cols.append(c)
-            if not t1:
-                tab = _stream93_band_tables(s)[1]
-                self._check_layout(tab, idx)
-                tabs.append(tab)
+        idxs = [decode93a.prescan93a(s, 0) if t1 else decode93.prescan93(s, 0)
+                for s in streams]
+        S = len(streams)
+        self.pool_u8, cols, tabs = pool_columns93(streams, idxs, [t1] * S,
+                                                  [0] * S)
+        for s, idx, c in zip(streams, idxs, cols):
+            mix, vol = trace_standalone(s, idx.n_frames, os_v, mixing_level,
+                                        master_volume)
+            c.update(n_frames=idx.n_frames, mix=mix, vol=vol)
         self._cols = cols
-        self._tabs = tabs
+        self._tabs = [t for t in tabs if t is not None]
         self.n_frames_total = int(sum(c["n_frames"] for c in cols))
         self.audio_samples = self.n_frames_total * 240
-
-    @staticmethod
-    def _check_layout(tab, idx):
-        """The device recomputes each frame's output layout (out_start,
-        out_inc, n_samp) from the stream's band tables ``tab``; check the
-        reconstruction against the walker's index once per stream."""
-        n = tab["n"].astype(np.int64)[None, :]
-        kindm = idx.kind
-        adv = tab["pre"].astype(np.int64)[None, :] + np.where(
-            kindm == decode93.K_NONE, tab["skip"].astype(np.int64)[None, :],
-            n * tab["inc"].astype(np.int64)[None, :]
-            + tab["fix"].astype(np.int64)[None, :])
-        start = 1 + np.cumsum(adv, axis=1) - adv \
-            + tab["pre"].astype(np.int64)[None, :]
-        used = kindm != decode93.K_NONE
-        inc = np.broadcast_to(tab["inc"].astype(np.int64)[None, :],
-                              kindm.shape)
-        if not (np.array_equal(start[used], idx.out_start[used])
-                and np.array_equal(np.broadcast_to(n, kindm.shape)[used],
-                                   idx.n_samp[used])
-                and np.array_equal(inc[used], idx.out_inc[used])):
-            raise ValueError("the band tables' layout differs from the "
-                             "walker's")
 
     def compact_host_arrays(self):
         """Transfer-compact numpy columns, the reference's wire: narrow
@@ -349,24 +331,19 @@ class Flat93Pipeline(nn.Module):
     """The device half of the 1993 flat sweep, both wires (93b / 93a
     Type-0 and OS93a Type-1); ``forward`` takes the tensors of
     packed93_to_device and returns pcm [N, 240] int32 (u16 storage).  The
-    codec tables are buffers, made on ``device`` (the card unless given).
-    ``plain=True`` runs the plain PyTorch versions of the kernels on any
-    device (the comparison path)."""
+    codec tables are buffers, made on ``device`` (the card unless
+    given)."""
 
-    def __init__(self, device=None, plain=False):
+    def __init__(self, device=None):
         super().__init__()
-        self.plain = plain
         dev = _device("cuda" if device is None else device)
         for name, t in codec_tables93().items():
             self.register_buffer(name, t.to(dev))
 
     def forward(self, mix, vol, **cols):
         with span("dcs.flat93"):
-            tabs = dict(self.named_buffers())
-            if self.plain:
-                return decode93.decode93_pcm_plain(cols, None, mix, vol,
-                                                   cols["sid"], tabs)
-            return decode93.decode93_pcm(cols, mix, vol, cols["sid"], tabs)
+            return decode93.decode93_pcm(cols, mix, vol, cols["sid"],
+                                         dict(self.named_buffers()))
 
 
 def run_flat93(sweep, device="cuda"):

@@ -114,30 +114,25 @@ def flat_pipeline(pool_u8, start_bit, header, fmt_type, sub_type, band_type,
 
 
 def flat_pipeline_packed(pool_u8, sid, start_bit, bt_u8, mix_u16, vol_u8,
-                         hdr_tab, fmt_tab, sub_tab, n_steps, tabs,
-                         plain=False):
+                         hdr_tab, fmt_tab, sub_tab, n_steps, tabs):
     """The flat sweep from the transfer-compact columns
     (FlatSweep.compact_host_arrays via packed_to_device): the stream header
     travels once per stream (hdr_tab [S, 16] + sid [N]); band_type_prev and
-    stream starts derive from sid.  ``plain`` runs the plain versions of
-    the kernels on any device.  Returns pcm [N, 240] int32 u16 storage."""
-    decode = bd.decode94_fb_plain if plain else bd.decode94_fb
-    to_pcm = tf.transform94_pcm_plain if plain else tf.transform94_pcm
-    fb = decode(pool_u8, sid, start_bit.int(), bt_u8, mix_u16.int(), hdr_tab,
-                fmt_tab, sub_tab, n_steps, tabs)
-    return to_pcm(fb, vol_u8.int(), sid, tabs)
+    stream starts derive from sid.  Returns pcm [N, 240] int32 u16
+    storage."""
+    fb = bd.decode94_fb(pool_u8, sid, start_bit.int(), bt_u8, mix_u16.int(),
+                        hdr_tab, fmt_tab, sub_tab, n_steps, tabs)
+    return tf.transform94_pcm(fb, vol_u8.int(), sid, tabs)
 
 
 class FlatPipeline(nn.Module):
     """The device half of the flat sweep; ``forward`` is
     flat_pipeline_packed over the tensors of packed_to_device.  The codec
     tables are buffers, made on ``device`` (the card unless given) and
-    moved by ``.to(device)``.  ``plain=True`` runs the plain PyTorch
-    versions of the kernels on any device (the comparison path)."""
+    moved by ``.to(device)``."""
 
-    def __init__(self, device=None, plain=False):
+    def __init__(self, device=None):
         super().__init__()
-        self.plain = plain
         dev = _device("cuda" if device is None else device)
         for name, t in codec_tables().items():
             self.register_buffer(name, t.to(dev))
@@ -148,7 +143,7 @@ class FlatPipeline(nn.Module):
             return flat_pipeline_packed(pool_u8, sid, start_bit, bt_u8,
                                         mix_u16, vol_u8, hdr_tab, fmt_tab,
                                         sub_tab, n_steps,
-                                        dict(self.named_buffers()), self.plain)
+                                        dict(self.named_buffers()))
 
 
 def packed_to_device(arrays, device="cuda"):
@@ -175,16 +170,83 @@ def to_int16(pcm):
     return (((pcm & 0xFFFF) ^ 0x8000) - 0x8000).astype(np.int16).reshape(-1)
 
 
-def reference_pcm(stream, n_frames, mixing_level=MIXING_LEVEL,
-                  master_volume=MASTER_VOLUME):
-    """int16 PCM of one stream from the scalar reference decoder, at the
-    standalone-playback settings FlatSweep traces."""
+def trace_standalone(stream, n_frames, os_version, mixing_level,
+                     master_volume):
+    """Per-frame (mix multiplier, volume shift) of channel 0 for standalone
+    playback of ``stream`` under ``os_version``, from the native runtime
+    VM."""
+    tr = nt.NativeControlTracer(stream, default_volume=master_volume,
+                                standalone_os=os_version)
+    try:
+        tr.soft_boot()
+        tr.load_audio_stream(0, 0, mixing_level=mixing_level)
+        _, _, out_m, out_v = tr.trace_frames(n_frames)
+    finally:
+        tr.close()
+    return out_m[:, 0].astype(np.int32), out_v.astype(np.int32)
+
+
+def reference_pcm(stream, n_frames, os_version=rd.OS94,
+                  mixing_level=MIXING_LEVEL, master_volume=MASTER_VOLUME):
+    """int16 PCM of one stream from the scalar reference decoder, played
+    standalone under ``os_version`` as trace_standalone traces it."""
     dec = rd.ReferenceDecoder()
     dec.default_volume = master_volume
-    dec.init_standalone(rd.OS94)
+    dec.init_standalone(os_version)
     dec.soft_boot()
     dec.load_audio_stream(0, bytes(stream), mixing_level=mixing_level)
     return np.array(dec.next_samples(n_frames * 240), dtype=np.int16)
+
+
+def n_steps94(idxs):
+    """The symbol steps a 1994+ decode takes over streams of these
+    prescan94 indexes: the most any frame's scan needs (scan_totals),
+    rounded up to 8, at most 256; 8 where no stream has a frame."""
+    tops = [int(prescan.scan_totals(i).max()) for i in idxs if i.n_frames]
+    return min(256, (max(tops) + 7) & ~7) if tops else 8
+
+
+def decode_columns94(streams, idxs, origins=None):
+    """The compact decode columns of 1994+ streams (numpy), the format
+    decode94_fb and decode94_bank read.  ``idxs[k]`` is prescan94's index
+    of the stream that starts at byte ``origins[k]`` of ``streams[k]`` (0
+    unless given).  Each stream's body, from its origin to 8 bytes past its
+    last frame's end bit (to the buffer's end where it has no frames),
+    enters one byte pool followed by 8 $FF bytes, and 8 more close the
+    pool.  Returns pool_u8, sid [N] (each frame's stream), start_bit [N]
+    int32 (bit offsets in the pool), bt [N, 16] int32 (band types at full
+    width: a type-1 stream's may pass 255), hdr_tab [S, 16], fmt_tab and
+    sub_tab [S] uint8, and n_steps (n_steps94)."""
+    origins = [0] * len(idxs) if origins is None else origins
+    bufs, start = [], []
+    pos = 0
+    for s, i, o in zip(streams, idxs, origins):
+        end = int(i.end_bit[-1] // 8) + 8 if i.n_frames else len(s)
+        body = bytes(s[o:end])              # may clamp short of `end`
+        start.append((pos - o) * 8 + np.asarray(i.start_bit, np.int64))
+        bufs += [body, b"\xff" * 8]
+        pos += len(body) + 8
+    bufs.append(b"\xff" * 8)
+    bt = [np.asarray(i.band_type, np.int32).reshape(-1, 16) for i in idxs]
+    return dict(
+        pool_u8=np.frombuffer(b"".join(bufs), dtype=np.uint8),
+        sid=np.repeat(np.arange(len(idxs)), [i.n_frames for i in idxs]),
+        start_bit=(np.concatenate(start) if idxs
+                   else np.zeros(0)).astype(np.int32),
+        bt=np.concatenate(bt) if idxs else np.zeros((0, 16), np.int32),
+        hdr_tab=np.asarray([i.header for i in idxs], np.int64)
+        .reshape(-1, 16).astype(np.uint8),
+        fmt_tab=np.asarray([i.fmt_type for i in idxs], np.uint8),
+        sub_tab=np.asarray([i.sub_type for i in idxs], np.uint8),
+        n_steps=n_steps94(idxs))
+
+
+def narrow_band_types(bt):
+    """Full-width band types -> the compact columns' uint8; raises where
+    one does not fit."""
+    if bt.size and (bt.min() < 0 or bt.max() > 255):
+        raise ValueError("band types exceed uint8: use the wide args()")
+    return bt.astype(np.uint8)
 
 
 class FlatSweep:
@@ -192,105 +254,56 @@ class FlatSweep:
 
     Per catalog entry the host runs the native stream indexer (frame
     boundaries, band-type chains) and the native runtime VM trace (mixing
-    multipliers, volume shifts), then assembles the per-frame control
-    arrays with vectorized numpy.  Same columns as the reference's
-    FlatSweep, as numpy arrays."""
+    multipliers, volume shifts); decode_columns94 lays out the catalog's
+    decode columns.  Same columns as the reference's FlatSweep, as numpy
+    arrays."""
 
     def __init__(self, streams, mixing_level=MIXING_LEVEL,
                  master_volume=MASTER_VOLUME):
         idxs = [prescan.prescan94(s, 0) for s in streams]
-        offsets = []
-        bufs = []
-        pos = 0
-        for s, i in zip(streams, idxs):
-            offsets.append(pos)
-            end = int(i.end_bit[-1] // 8) + 8 if i.n_frames else len(s)
-            body = bytes(s[:end])            # may clamp short of `end`
-            bufs.append(body)
-            bufs.append(b"\xff" * 8)
-            pos += len(body) + 8
-        bufs.append(b"\xff" * 8)
-        self.pool_u8 = np.frombuffer(b"".join(bufs), dtype=np.uint8)
-
-        cols = []      # per stream: dict of per-frame numpy columns
-        for k, (s, i) in enumerate(zip(streams, idxs)):
-            F = i.n_frames
-            mixes, vols = self._trace(s, F, mixing_level, master_volume)
-            cols.append(dict(
-                n_frames=F,
-                start_bit=(offsets[k] * 8 + i.start_bit).astype(np.int32),
-                header=np.asarray(i.header, np.int32),       # [16], one row
-                fmt=int(i.fmt_type), sub=int(i.sub_type),
-                bt=np.asarray(i.band_type, np.int32),
-                btp=np.asarray(i.band_type_prev, np.int32),
-                mix=mixes, vol=vols,
-                totals=np.asarray(prescan.scan_totals(i), np.int64),
-            ))
-        self._cols = cols
-        self.n_frames_total = int(sum(c["n_frames"] for c in cols))
+        self._cols = decode_columns94(streams, idxs)
+        self.pool_u8 = self._cols["pool_u8"]
+        self._btp = [np.asarray(i.band_type_prev, np.int32) for i in idxs]
+        traces = [trace_standalone(s, i.n_frames, rd.OS94, mixing_level,
+                                   master_volume)
+                  for s, i in zip(streams, idxs)]
+        self._mix = [m for m, _ in traces]
+        self._vol = [v for _, v in traces]
+        self.n_frames_total = int(sum(i.n_frames for i in idxs))
         self.audio_samples = self.n_frames_total * 240
-        self.dense_totals = (np.concatenate([c["totals"] for c in cols])
-                             if cols else np.zeros(0, np.int64))
-
-    @staticmethod
-    def _trace(stream, n_frames, mixing_level, master_volume):
-        """Per-frame (mix multiplier, volume shift) of channel 0 for
-        standalone playback, from the native runtime VM."""
-        tr = nt.NativeControlTracer(stream, default_volume=master_volume,
-                                    standalone_os=rd.OS94)
-        try:
-            tr.soft_boot()
-            tr.load_audio_stream(0, 0, mixing_level=mixing_level)
-            _, _, out_m, out_v = tr.trace_frames(n_frames)
-        finally:
-            tr.close()
-        return out_m[:, 0].astype(np.int32), out_v.astype(np.int32)
 
     def pack(self):
         """Assemble the transfer-compact catalog columns."""
-        cols = self._cols
-        S = len(cols)
-        N = self.n_frames_total
-        cat = lambda key: (np.concatenate([c[key] for c in cols])
-                           if cols else np.zeros(0, np.int32))
+        c = self._cols
+        S = len(c["fmt_tab"])
         if S >= (1 << 16):
             raise ValueError(f"{S} streams: sid is uint16")
-        self.sid = np.repeat(np.arange(S, dtype=np.uint16),
-                             [c["n_frames"] for c in cols])
-        self.start_bit = cat("start_bit").astype(np.int32)
-        # full-width band types (type-1 streams accumulate deltas mod
+        self.sid = c["sid"].astype(np.uint16)
+        # bt: full-width band types (type-1 streams accumulate deltas mod
         # 0x10000); the compact wire narrows to uint8 and checks
-        self.bt = (np.concatenate([c["bt"] for c in cols])
-                   if cols else np.zeros((0, 16), np.int32))
-        mix = cat("mix")
-        vol = cat("vol")
+        for k in ("start_bit", "bt", "hdr_tab", "fmt_tab", "sub_tab",
+                  "n_steps"):
+            setattr(self, k, c[k])
+        cat = lambda parts: (np.concatenate(parts) if parts
+                             else np.zeros(0, np.int32))
+        mix = cat(self._mix)
+        vol = cat(self._vol)
         if mix.size and (mix.max() >= (1 << 16) or vol.max() >= 256):
             raise ValueError("mix exceeds uint16 or volume shift uint8")
         self.mix_u16 = mix.astype(np.uint16)
         self.vol_u8 = vol.astype(np.uint8)
-        self.hdr_tab = (np.stack([c["header"] for c in cols])
-                        if S else np.zeros((0, 16), np.int32)) \
-            .astype(np.uint8)
-        self.fmt_tab = np.asarray([c["fmt"] for c in cols], np.uint8)
-        self.sub_tab = np.asarray([c["sub"] for c in cols], np.uint8)
-        self.n_steps = int(min(256, (self.dense_totals.max() + 7) & ~7)) \
-            if N else 8
         return self
 
     def args(self):
         """The wide flat_pipeline arguments as numpy (pool as uint8): pool,
         start_bit, header, fmt, sub, bt, btp, mix, vol, stream_start,
         n_steps."""
-        cols = self._cols
         sid = self.sid.astype(np.int32)
-        header = (self.hdr_tab.astype(np.int32)[sid] if cols
-                  else np.zeros((0, 16), np.int32))
-        fmt = (self.fmt_tab.astype(np.int32)[sid] if cols
-               else np.zeros(0, np.int32))
-        sub = (self.sub_tab.astype(np.int32)[sid] if cols
-               else np.zeros(0, np.int32))
-        btp = (np.concatenate([c["btp"] for c in cols])
-               if cols else np.zeros((0, 16), np.int32))
+        header = self.hdr_tab.astype(np.int32)[sid]
+        fmt = self.fmt_tab.astype(np.int32)[sid]
+        sub = self.sub_tab.astype(np.int32)[sid]
+        btp = (np.concatenate(self._btp) if self._btp
+               else np.zeros((0, 16), np.int32))
         sstart = (np.concatenate([[True], sid[1:] != sid[:-1]])
                   if sid.size else np.zeros(0, bool))
         return (self.pool_u8, self.start_bit, header, fmt, sub, self.bt, btp,
@@ -300,14 +313,11 @@ class FlatSweep:
     def compact_host_arrays(self):
         """Transfer-compact numpy columns for flat_pipeline_packed
         (requires pack())."""
-        bt = self.bt
-        if bt.size and (bt.min() < 0 or bt.max() > 255):
-            raise ValueError("band types exceed uint8: use the wide args()")
         return dict(
             pool_u8=self.pool_u8,
             sid=self.sid,
             start_bit=self.start_bit,
-            bt_u8=bt.astype(np.uint8),
+            bt_u8=narrow_band_types(self.bt),
             mix_u16=self.mix_u16,
             vol_u8=self.vol_u8,
             hdr_tab=self.hdr_tab,

@@ -26,9 +26,9 @@ frames at once:
 ``SessionDecoder`` and ``SessionDecoder93`` are the device halves as
 ``nn.Module``s whose buffers are the codec tables and the bank, and
 ``session_decoder`` picks one by the bank's family.  On CUDA tensors each
-stage is a hand-written kernel (``ops/kernels.py``); on CPU tensors, or with
-``plain=True``, their plain PyTorch versions run.  The entry points run on
-the card unless the caller names another device.  Bit-exact with the JAX
+stage is a hand-written kernel (``ops/kernels.py``); on CPU tensors their
+plain PyTorch versions run.  The entry points run on the card unless the
+caller names another device.  Bit-exact with the JAX
 reference and the scalar decoder.
 """
 
@@ -42,6 +42,7 @@ from ..ops import transform as tf
 from ..refdec import decoder as rd
 from ..vm.tracer import ControlTracer
 from . import catalogsweep as cs
+from . import flatsweep as fs
 from .flatsweep import _device, codec_tables
 
 
@@ -79,97 +80,60 @@ class StreamBank:
         idx, t1 = _prescan(self.os_version, mem, pos)
         if getattr(idx, "error_frame", -1) >= 0:
             raise ValueError(f"stream error at frame {idx.error_frame}")
-        data_end = int(idx.end_bit[-1] // 8 + 8) if idx.n_frames else pos + 18
-        raw = bytes(mem[pos:data_end + 4]) + b"\xff" * 8
         self.keys[key] = len(self._streams)
-        self._streams.append((idx, raw, pos, t1))
+        self._streams.append((idx, mem, pos, t1))
         return key
 
-    def columns(self):
-        """The bank's compact decode columns (numpy): pool_u8, sid,
-        start_bit, bt_u8, hdr_tab, fmt_tab, sub_tab, n_steps; and sets
-        ``offsets`` (key -> first row).  The streams' bytes concatenate into
-        one pool with per-frame global bit offsets, as the reference's bank
-        lays them out."""
-        offsets = {}
-        pool = []
-        n_pool = 0
-        cols = []
-        total = 1                     # row 0 is the silent dummy row
-        n_steps = 8
+    def _set_offsets(self):
+        """Each stream's first row (key -> row), in the order of
+        registration after the silent row 0."""
+        self.offsets, total = {}, 1
         for key, si in self.keys.items():
-            idx, raw, pos, _ = self._streams[si]
-            F = idx.n_frames
-            rel_start = idx.start_bit.astype(np.int64) - pos * 8
-            cols.append(dict(
-                sid=np.full(F, si, np.int32),
-                start_bit=(n_pool * 8 + rel_start).astype(np.int32),
-                bt=np.asarray(idx.band_type, np.int64).reshape(F, 16),
-                hdr=np.asarray(idx.header, np.int64),
-                fmt=int(idx.fmt_type), sub=int(idx.sub_type)))
-            pool.append(raw)
-            n_pool += len(raw)
-            if F:
-                n_steps = max(n_steps,
-                              min(256, (int(prescan.scan_totals(idx).max())
-                                        + 7) & ~7))
-            offsets[key] = total
-            total += F
-        pool.append(b"\xff" * 8)
-        cat = lambda k, shape: (np.concatenate([c[k] for c in cols])
-                                if cols else np.zeros(shape, np.int64))
-        bt = cat("bt", (0, 16))
-        if bt.size and (bt.min() < 0 or bt.max() > 255):
-            raise ValueError("band types exceed uint8")
-        self.offsets = offsets
-        return dict(
-            pool_u8=np.frombuffer(b"".join(pool), np.uint8),
-            sid=cat("sid", 0).astype(np.int32),
-            start_bit=cat("start_bit", 0).astype(np.int32),
-            bt_u8=bt.astype(np.uint8),
-            hdr_tab=np.asarray([c["hdr"] for c in cols], np.uint8)
-            .reshape(-1, 16),
-            fmt_tab=np.asarray([c["fmt"] for c in cols], np.uint8),
-            sub_tab=np.asarray([c["sub"] for c in cols], np.uint8),
-            n_steps=n_steps)
+            self.offsets[key] = total
+            total += self._streams[si][0].n_frames
+
+    def columns(self):
+        """The bank's compact decode columns (numpy): those of
+        flatsweep.decode_columns94 over the streams that have frames
+        (pool_u8, sid, start_bit, bt_u8, hdr_tab, fmt_tab, sub_tab,
+        n_steps); row r + 1 decodes frame r.  Sets ``offsets``."""
+        played = [st for st in self._streams if st[0].n_frames]
+        cols = fs.decode_columns94([m for _, m, _, _ in played],
+                                   [i for i, _, _, _ in played],
+                                   [p for _, _, p, _ in played])
+        cols["sid"] = cols["sid"].astype(np.int32)
+        cols["bt_u8"] = fs.narrow_band_types(cols.pop("bt"))
+        self._set_offsets()
+        return cols
 
     def columns93(self):
         """A 1993 bank's columns (numpy; ops/decode93.py's layout, row 0
-        silent): the streams' bytes concatenate into one pool with global
-        bit offsets, each stream frame is one row, and band_tab holds each
-        stream's 93 band layout (zeros for OS93a Type-1).  Sets
-        ``offsets``."""
-        offsets = {}
-        pool = []
-        n_pool = 0
+        silent): those of catalogsweep.pool_columns93 over each stream's
+        bytes up to 12 past its last frame's end byte, one row a stream
+        frame, and band_tab, each stream's 93 band layout (zeros for OS93a
+        Type-1).  Sets ``offsets``."""
+        streams = self._streams
+        bodies = []
+        for idx, mem, pos, _ in streams:
+            end = int(idx.end_bit[-1] // 8) + 12 if idx.n_frames else pos + 22
+            bodies.append(bytes(mem[pos:end]))
+        pool, cols, tabs = cs.pool_columns93(
+            bodies, [st[0] for st in streams], [st[3] for st in streams],
+            [st[2] for st in streams])
         z = cs.rows93(dict(frame_word=np.zeros(1), bit_rel=np.zeros((1, 16)),
                            kw=np.zeros((1, 16)), prv_in=np.zeros((1, 16)),
                            prv_dl=np.zeros((1, 16))), False)
         z["kind_u8"][:] = decode93.ROW_SILENT
         parts = [dict(z, sid=np.zeros(1, np.int32))]
-        tabs = []
-        total = 1
-        for key, si in self.keys.items():
-            idx, raw, pos, t1 = self._streams[si]
-            c = cs.rows93(cs.stream_columns(idx, t1, (n_pool - pos) * 8), t1)
-            c["sid"] = np.full(idx.n_frames, si, np.int32)
-            parts.append(c)
-            if t1:
-                tabs.append(np.zeros((16, 8), np.int32))
-            else:
-                tab = cs._stream93_band_tables(raw)[1]
-                cs.Flat93Sweep._check_layout(tab, idx)
-                tabs.append(cs.band_table(tab))
-            pool.append(raw)
-            n_pool += len(raw)
-            offsets[key] = total
-            total += idx.n_frames
-        pool.append(b"\xff" * 8)
+        for si, ((idx, _, _, t1), c) in enumerate(zip(streams, cols)):
+            parts.append(dict(cs.rows93(c, t1),
+                              sid=np.full(idx.n_frames, si, np.int32)))
         out = {k: np.concatenate([c[k] for c in parts]) for k in parts[0]}
-        out["pool_u8"] = np.frombuffer(b"".join(pool), np.uint8)
-        out["band_tab"] = (np.stack(tabs) if tabs
-                           else np.zeros((1, 16, 8), np.int32))
-        self.offsets = offsets
+        out["pool_u8"] = pool
+        out["band_tab"] = (np.stack([np.zeros((16, 8), np.int32) if t is None
+                                     else cs.band_table(t) for t in tabs])
+                           if tabs else np.zeros((1, 16, 8), np.int32))
+        self._set_offsets()
         return out
 
     def decode_all(self, device="cuda"):
@@ -205,12 +169,10 @@ class StreamBank:
 class SessionDecoder(nn.Module):
     """The device half of the session path.  Buffers: the codec tables
     (codec_tables) and the bank's rows (``scaled``), on ``device`` (the
-    bank's unless given).  ``plain=True`` runs the plain PyTorch versions of
-    the kernels on any device (the comparison path)."""
+    bank's unless given)."""
 
-    def __init__(self, bank, device=None, plain=False):
+    def __init__(self, bank, device=None):
         super().__init__()
-        self.plain = plain
         dev = bank.device if device is None else _device(device)
         for name, t in codec_tables().items():
             self.register_buffer(name, t.to(dev))
@@ -223,12 +185,9 @@ class SessionDecoder(nn.Module):
         state per session, or None for a zero state.  Returns pcm [F, 240]
         without overlap0, (pcm, last_ov [G, 16]) with it; int32, u16
         storage."""
-        mixer = bd.session_mix94_plain if self.plain else bd.session_mix94
-        to_pcm = tf.transform94_pcm_plain if self.plain \
-            else tf.transform94_pcm
-        fb = mixer(self.scaled, rows, mix)
-        return to_pcm(fb, vol_shift, sid, dict(self.named_buffers()),
-                      overlap0)
+        fb = bd.session_mix94(self.scaled, rows, mix)
+        return tf.transform94_pcm(fb, vol_shift, sid,
+                                  dict(self.named_buffers()), overlap0)
 
 
 class SessionDecoder93(nn.Module):
@@ -236,12 +195,10 @@ class SessionDecoder93(nn.Module):
     ``device_decode93``).  Buffers: the bank's session bank (``words93``,
     ``kind93``) and the codec tables of codec_tables93, on ``device`` (the
     bank's unless given); every row is in the session bank, so the
-    bitstream stays with the bank.  ``plain=True`` runs the plain PyTorch
-    versions of the kernels on any device (the comparison path)."""
+    bitstream stays with the bank."""
 
-    def __init__(self, bank, device=None, plain=False):
+    def __init__(self, bank, device=None):
         super().__init__()
-        self.plain = plain
         dev = bank.device if device is None else _device(device)
         for name, t in list(bank.bank93.items()) + list(
                 cs.codec_tables93().items()):
@@ -252,16 +209,15 @@ class SessionDecoder93(nn.Module):
         [F], overlap0 [G, 16] or None.  Each frame starts from silence and
         mixes its voices' session-bank rows in channel order."""
         bufs = dict(self.named_buffers())
-        decode = decode93.session93_pcm_plain if self.plain \
-            else decode93.session93_pcm
-        return decode(bufs, rows, mix, vol_shift, sid, bufs, overlap0)
+        return decode93.session93_pcm(bufs, rows, mix, vol_shift, sid, bufs,
+                                      overlap0)
 
 
-def session_decoder(bank, device=None, plain=False):
+def session_decoder(bank, device=None):
     """The session decoder of the bank's family, on ``device`` (the
     bank's unless given)."""
     cls = SessionDecoder93 if bank.family93 else SessionDecoder
-    return cls(bank, device, plain=plain)
+    return cls(bank, device)
 
 
 def assemble_controls(tracer: ControlTracer, bank: StreamBank):

@@ -230,10 +230,8 @@ class SessionServer:
     yielded batch is int16 PCM [n_sessions, n_frames * 240] (numpy), or
     ``reduce_fn``'s result fetched to the host: ``reduce_fn`` receives the
     decoder's words [S, n_frames * 240] (int32, u16 storage) on the device
-    and returns a tensor.  ``plain=True`` runs the plain PyTorch versions
-    of the kernels on the server's device (the comparison path).  A bank
-    of 64Ki rows or more travels on the wide wire (``wide``), one of 2^24
-    or more is refused.
+    and returns a tensor.  A bank of 64Ki rows or more travels on the
+    wide wire (``wide``), one of 2^24 or more is refused.
 
         with SessionServer(rom_set, n_sessions=64, n_frames=500) as srv:
             for pcm in srv.serve(batches_of_event_dicts):
@@ -242,7 +240,7 @@ class SessionServer:
 
     def __init__(self, rom_set, n_sessions, n_frames, n_ch=8, seg_e=32,
                  depth=3, default_volume=0x67, bank=None, reduce_fn=None,
-                 device="cuda", plain=False):
+                 device="cuda"):
         dev = _device(device)
         if not 1 <= n_ch <= kernels.MAX_CHANNELS:
             raise ValueError(f"n_ch {n_ch}: expected 1..8")
@@ -255,11 +253,10 @@ class SessionServer:
         self.seg_e = seg_e
         self.depth = max(1, depth)
         self.reduce_fn = reduce_fn
-        self.plain = plain
         self.device = dev
         self.bank = bank if bank is not None else build_rom_bank(rom_set, dev)
         self.wide = wide_wire(self.bank.total_rows())
-        self.decoder = pl.session_decoder(self.bank, dev, plain=plain)
+        self.decoder = pl.session_decoder(self.bank, dev)
         self._addr_tab, self._off_tab = nt.stream_row_table(rom_set,
                                                             self.bank)
         self._tracer = nt.NativeControlTracer(
@@ -307,10 +304,9 @@ class SessionServer:
         silence and a zero overlap state.  Spans: ``dcs.session`` around
         ``.expand`` (segments94), ``.decode`` and ``.reduce``."""
         S, C, T = self.n_sessions, self.n_ch, self.n_frames
-        expand = segments94_plain if self.plain else segments94
         with span("dcs.session"):
             with span("dcs.session.expand"):
-                rows, mix, vol = expand(wire, S, T, C, E)
+                rows, mix, vol = segments94(wire, S, T, C, E)
             with span("dcs.session.decode"):
                 words = self.decoder(rows, mix, vol, self._sid) \
                     .reshape(S, T * 240)

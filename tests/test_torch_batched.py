@@ -104,8 +104,7 @@ def test_batch_decode_matches_jax_on_every_row(family):
     for k in short:
         n = int(inputs.n_frames[k])
         assert np.array_equal(want[k, n:] & 0xFFFF, got[k, n:].numpy())
-    # the plain flag takes the same route; on the CPU no kernel launched
-    assert torch.equal(tb.batch_decode(*inputs.args("cpu"), plain=True), got)
+    # on the CPU no kernel launched
     assert kernels.LAUNCHES == before
 
 

@@ -35,7 +35,7 @@ overlap_resolve93_flat or, with a carried state, overlap_resolve93 per run.
   short pool) against the serial chain at 1 and 6 voices; the session
   path's plain version from the bank equals decode93_pcm_plain at C = 1,
   2, 3, 6 and 8, flat and with carried states;
-- Flat93Pipeline and SessionDecoder93 with plain=True still equal the
+- Flat93Pipeline and SessionDecoder93 on the CPU still equal the
   composition they ran before (decode93_fb_plain, then
   transform93_pcm_plain)."""
 
@@ -390,11 +390,10 @@ def test_flat93_pipeline_plain_is_decode_then_transform(tabs):
                for n in ("music_b.dcs93a", "music_a.dcs93b")]
     cols = tcs.packed93_to_device(
         tcs.Flat93Sweep(streams, False).compact_host_arrays(), "cpu")
-    got = tcs.Flat93Pipeline("cpu", plain=True)(**cols)
+    got = tcs.Flat93Pipeline("cpu")(**cols)
     fb = td93.decode93_fb_plain(cols, None, cols["mix"], tabs)
     want = ttf.transform93_pcm_plain(fb, cols["vol"], cols["sid"], tabs)
     assert torch.equal(want, got)
-    assert torch.equal(want, tcs.Flat93Pipeline("cpu")(**cols))
 
 
 def test_session_decoder93_plain_is_decode_then_transform(session93a, tabs):
@@ -404,14 +403,11 @@ def test_session_decoder93_plain_is_decode_then_transform(session93a, tabs):
     t = lambda a: torch.from_numpy(np.asarray(a).astype(np.int32))
     sid = t(np.repeat([0, 1], [40, F - 40]))
     ov0 = t(rng.integers(0, 1 << 16, size=(2, 16)))
-    dec = tpl.SessionDecoder93(tb, "cpu", plain=True)
+    dec = tpl.SessionDecoder93(tb, "cpu")
     pcm, last = dec(t(rows), t(mix), t(vol), sid, ov0)
     fb = td93.decode93_fb_plain(tb.cols, t(rows), t(mix), tabs)
     w_pcm, w_last = ttf.transform93_pcm_plain(fb, t(vol), sid, tabs, ov0)
     assert torch.equal(w_pcm, pcm) and torch.equal(w_last, last)
-    g_pcm, g_last = tpl.SessionDecoder93(tb, "cpu")(t(rows), t(mix), t(vol),
-                                                   sid, ov0)
-    assert torch.equal(w_pcm, g_pcm) and torch.equal(w_last, g_last)
 
 
 # -- the session bank ------------------------------------------------------------------

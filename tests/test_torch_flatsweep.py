@@ -100,12 +100,6 @@ def test_wide_flat_pipeline_matches_jax(sweeps, jax_pcm):
         tfs.flat_pipeline(t[0].to("meta"), *t[1:], a[10], tabs)
 
 
-def test_plain_pipeline_flag_matches_default(sweeps, jax_pcm):
-    args = tfs.packed_to_device(sweeps[1].compact_host_arrays(), "cpu")
-    pcm = tfs.FlatPipeline("cpu", plain=True)(**args)
-    assert np.array_equal(jax_pcm & 0xFFFF, pcm.numpy())
-
-
 def test_smallest_stream_matches_reference_decoder(sweeps):
     # the scalar ReferenceDecoder is the ground truth chip_smoke.py checks
     # all six assets against on the card; here the shortest one on CPU

@@ -91,7 +91,8 @@ def test_native_trace_matches_jax(name):
     for w, g in zip(*outs):
         assert np.array_equal(w, g)
     # the (mix, vol) columns the sweep packs
-    mix, vol = tfs.FlatSweep._trace(s, n, tfs.MIXING_LEVEL, tfs.MASTER_VOLUME)
+    mix, vol = tfs.trace_standalone(s, n, os94, tfs.MIXING_LEVEL,
+                                    tfs.MASTER_VOLUME)
     assert np.array_equal(mix, outs[0][2][:, 0]) and (mix > 0).any()
     assert np.array_equal(vol, outs[0][3])
 

@@ -12,12 +12,12 @@ buffers as whole words, PCM as u16 storage (& $FFFF).
   absent, which its contract makes the same) on random slots from a numpy
   seed with duplicate indices, indices outside 0..511, fb_prev given and
   absent, active given and absent; and on a frame worked by hand;
-- hybrid_batch_device (plain and the CPU dispatch) on three assets padded
-  to the longest against the JAX hybrid_batch_device (one jit), pad frames
-  included;
+- hybrid_batch_device (numpy inputs sent to the CPU, and CPU tensors) on
+  three assets padded to the longest against the JAX hybrid_batch_device
+  (one jit), pad frames included;
 - each asset through hybrid_stage_device against the ReferenceDecoder at
   mixing $64 and volume $67 (tests/test_native.py's settings), and the
-  hybrid's PCM against FlatPipeline(plain=True) on the same streams;
+  hybrid's PCM against FlatPipeline on the CPU on the same streams;
 - numpy inputs with no device named go to the card: without one they
   raise.  The kernel's wrapper refuses CPU tensors."""
 
@@ -203,30 +203,32 @@ def padded():
     return host, mix, vol, want
 
 
-@pytest.mark.parametrize("plain", [True, False])
-def test_hybrid_batch_device_matches_jax(padded, plain):
+@pytest.mark.parametrize("inputs", ["numpy", "tensors"])
+def test_hybrid_batch_device_matches_jax(padded, inputs):
+    # numpy arrays go to the named device; CPU tensors stay on the CPU,
+    # whatever the default device
     host, mix, vol, want = padded
     before = dict(kernels.LAUNCHES)
-    got = tb.hybrid_batch_device(*host[:4], mix, vol, device="cpu",
-                                 plain=plain)
+    if inputs == "numpy":
+        got = tb.hybrid_batch_device(*host[:4], mix, vol, device="cpu")
+    else:
+        got = tb.hybrid_batch_device(*(_t(a) for a in host[:4]), _t(mix),
+                                     _t(vol))
     assert kernels.LAUNCHES == before
+    assert got.device.type == "cpu"
     assert got.shape == want.shape == (3, 196, 240)
     assert np.array_equal(want & 0xFFFF, got.numpy())
-    # CPU tensors stay on the CPU, whatever the default device
-    again = tb.hybrid_batch_device(*(_t(a) for a in host[:4]), _t(mix),
-                                   _t(vol))
-    assert torch.equal(again, got)
 
 
 @pytest.mark.parametrize("name", NAMES94)
 def test_hybrid_stage_matches_reference_decoder(name):
     s = _read(name)
     r = native.decode_dense(s)
-    mix, vol = tfs.FlatSweep._trace(s, r.n_frames, 0x64, 0x67)
+    mix, vol = tfs.trace_standalone(s, r.n_frames, tfs.rd.OS94, 0x64, 0x67)
     pcm = tb.hybrid_stage_device(r.dense, r.scale, r.fb_idx, r.valid, mix,
                                  vol, device="cpu")
     assert pcm.shape == (r.n_frames, 240)
-    want = tfs.reference_pcm(s, r.n_frames, 0x64, 0x67)
+    want = tfs.reference_pcm(s, r.n_frames, tfs.rd.OS94, 0x64, 0x67)
     assert np.array_equal(want, pcm.numpy().astype(np.int16).reshape(-1))
     assert np.abs(want).max() > 0
 
@@ -237,7 +239,7 @@ def test_hybrid_equals_the_flat_sweep():
     streams = [_read(n) for n in PADDED]
     sw = tfs.FlatSweep(streams).pack()
     arrays = sw.compact_host_arrays()
-    flat = tfs.FlatPipeline("cpu", plain=True)(
+    flat = tfs.FlatPipeline("cpu")(
         **tfs.packed_to_device(arrays, "cpu")).numpy()
     dense, scale, fb_idx, valid, n_frames = tb.hybrid_host_stage(streams)
     S, F = dense.shape[:2]
@@ -248,7 +250,7 @@ def test_hybrid_equals_the_flat_sweep():
         mix[k, :n] = arrays["mix_u16"][starts[k]:starts[k + 1]]
         vol[k, :n] = arrays["vol_u8"][starts[k]:starts[k + 1]]
     pcm = tb.hybrid_batch_device(dense, scale, fb_idx, valid, mix, vol,
-                                 device="cpu", plain=True).numpy()
+                                 device="cpu").numpy()
     got = np.concatenate([pcm[k, :n] for k, n in enumerate(n_frames)])
     assert np.array_equal(flat, got)
 

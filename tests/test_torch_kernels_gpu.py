@@ -118,6 +118,30 @@ def tabs(dev):
     return {k: v.to(dev) for k, v in fs.codec_tables().items()}
 
 
+def _launch_counts(**counts):
+    """The launches a test expects of every LAUNCHES key: ``counts`` for
+    those named, 0 for the others."""
+    assert set(counts) <= set(kernels.LAUNCHES)
+    return {k: counts.get(k, 0) for k in kernels.LAUNCHES}
+
+
+def _plain_serve_one(srv, events):
+    """One batch of a SessionServer through the plain versions of its
+    stages on the server's device: int16 PCM [S, T * 240] (numpy)."""
+    S, T, C = srv.n_sessions, srv.n_frames, srv.n_ch
+    wire, E = srv.prepare(events)
+    rows, mix, vol = romplay.segments94_plain(
+        torch.from_numpy(wire).to(srv.device), S, T, C, E)
+    bufs = dict(srv.decoder.named_buffers())
+    if srv.bank.family93:
+        words = d93.session93_pcm_plain(bufs, rows, mix, vol, srv._sid, bufs)
+    else:
+        words = tf.transform94_pcm_plain(
+            bd.session_mix94_plain(bufs["scaled"], rows, mix), vol,
+            srv._sid, bufs)
+    return pipeline.to_int16(words.reshape(S, T * 240)).cpu().numpy()
+
+
 def _random_catalog(n, seed, dev, pool_len=20_001, bt_max=256):
     """Random compact columns: sorted stream ids in runs of 1 to ~300
     frames (so streams cross the kernel's 128-frame blocks), random
@@ -267,7 +291,7 @@ def test_dequant_mix_dense_kernel_on_the_assets(dev):
         assert torch.equal(want, got)
 
 
-def test_hybrid_on_the_card_equals_the_plain_path_and_the_cpu(dev):
+def test_hybrid_on_the_card_equals_the_plain_path_and_the_cpu(dev, tabs):
     streams = [open(p, "rb").read()
                for p in sorted(glob.glob(os.path.join(ASSETS, "*.dcs94")))]
     host = batched.hybrid_host_stage(streams)
@@ -283,8 +307,11 @@ def test_hybrid_on_the_card_equals_the_plain_path_and_the_cpu(dev):
                                  "transform94_pcm": 1}
     assert got.device == dev
     on_card = [torch.tensor(a, device=dev) for a in (*host[:4], mix, vol)]
-    plain = batched.hybrid_batch_device(*on_card, plain=True)
-    assert torch.equal(got, plain)
+    d, sc, ix, va, m, v = (a.reshape(S * F, -1) for a in on_card)
+    fb = bd.dequant_mix_dense_plain(d, (sc, ix, va), m.reshape(-1))
+    sid = torch.arange(S, dtype=torch.int32, device=dev).repeat_interleave(F)
+    plain = tf.transform94_pcm_plain(fb, v.reshape(-1), sid, tabs)
+    assert torch.equal(got, plain.reshape(S, F, 240))
     assert torch.equal(got.cpu(), cpu)
     # one stream alone, tensors already on the card
     one = batched.hybrid_stage_device(*(a[2] for a in on_card))
@@ -376,16 +403,7 @@ def test_sweep_on_the_card_equals_the_cpu_sweep(dev):
     launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
     want = fs.FlatPipeline("cpu")(**fs.packed_to_device(arrays, "cpu"))
     assert torch.equal(want, got.cpu())
-    assert launched == {"decode94_fb": 1, "decode94_bank": 0,
-                        "dequant_mix": 0, "dequant_mix_dense": 0,
-                        "segments94": 0, "segments94_rows32": 0,
-                        "session_mix94": 0,
-                        "transform94_planar": 0, "transform94_pcm": 1,
-                        "transform94_pcm_carry": 0, "decode93_fb": 0,
-                        "transform93_pcm": 0, "transform93_pcm_carry": 0,
-                        "decode93_pcm": 0, "decode93_pcm_carry": 0,
-                        "decode93_bank": 0, "encode94_analyze": 0,
-                        "encode94_decide": 0, "encode94_select": 0}
+    assert launched == _launch_counts(decode94_fb=1, transform94_pcm=1)
 
 
 # -- the session path --------------------------------------------------------
@@ -555,9 +573,8 @@ def test_session_server_on_a_full_title_equals_its_plain_path(dev):
             assert srv.wide == wide
             got = srv.serve_one(events)
         launched = {k: kernels.LAUNCHES[k] - before[k] for k in before}
-        with romplay.SessionServer(rs, S, T, n_ch=6, bank=bank,
-                                   plain=True) as srv:
-            want = srv.serve_one(events)
+        with romplay.SessionServer(rs, S, T, n_ch=6, bank=bank) as srv:
+            want = _plain_serve_one(srv, events)
         assert np.array_equal(want, got) and np.abs(got).max() > 0
         assert {k: v for k, v in launched.items() if v} == {
             ("segments94_rows32" if wide else "segments94"): 1,
@@ -747,16 +764,8 @@ def test_session_server_on_the_card_equals_the_cpu_server(dev):
     assert len(got) == len(want) == 3
     assert all(np.array_equal(w, g) for w, g in zip(want, got))
     # a served batch starts each session from a zero state: no carry
-    assert launched == {"decode94_fb": 0, "decode94_bank": 1,
-                        "dequant_mix": 0, "dequant_mix_dense": 0,
-                        "segments94": 3, "segments94_rows32": 0,
-                        "session_mix94": 3,
-                        "transform94_planar": 0, "transform94_pcm": 3,
-                        "transform94_pcm_carry": 0, "decode93_fb": 0,
-                        "transform93_pcm": 0, "transform93_pcm_carry": 0,
-                        "decode93_pcm": 0, "decode93_pcm_carry": 0,
-                        "decode93_bank": 0, "encode94_analyze": 0,
-                        "encode94_decide": 0, "encode94_select": 0}
+    assert launched == _launch_counts(decode94_bank=1, segments94=3,
+                                      session_mix94=3, transform94_pcm=3)
 
 
 # -- the 1993 family -----------------------------------------------------------
@@ -1945,13 +1954,11 @@ def test_sharded_sweep_on_the_card_equals_the_plain_path(dev):
     inputs = batched.SweepInputs(legacy * 3)
     args = inputs.args(dev)
     single = batched.batch_decode(*args)
-    plain = batched.batch_decode(*args, plain=True)
-    cpu = batched.batch_decode(*inputs.args("cpu"))
+    cpu = batched.batch_decode(*inputs.args("cpu"))       # the plain path
     before = dict(kernels.LAUNCHES)
     got = sweep.sharded_sweep(sweep.make_mesh(CARD4, frame_shards=2), inputs)
     torch.cuda.synchronize()
     assert _launched(before) == {"decode94_fb": 4, "transform94_pcm": 4}
-    assert torch.equal(single, plain)
     assert torch.equal(single.cpu(), cpu)
     assert torch.equal(got, single)
     # a chunk with a carried overlap, on the card
@@ -1960,8 +1967,9 @@ def test_sharded_sweep_on_the_card_equals_the_plain_path(dev):
     chunk = (sb[3], rs[3, 40:97], hd[3], fmt, sub, bt[3, 40:97],
              btp[3, 40:97], mix[3, 40:97], vol[3, 40:97], ov0, n_steps)
     pcm, last = batched.stream_decode(*chunk)
-    want, want_last = batched.stream_decode(*chunk, plain=True)
-    assert torch.equal(pcm, want) and torch.equal(last, want_last)
+    want, want_last = batched.stream_decode(
+        *(a.cpu() if isinstance(a, torch.Tensor) else a for a in chunk))
+    assert torch.equal(pcm.cpu(), want) and torch.equal(last.cpu(), want_last)
 
 
 def test_graft_entry_on_the_card(dev):

@@ -8,7 +8,7 @@ device (["cpu"] * 8): the split, the halo and the gather run as on
 - the 2-D sweep of the padded model at frame_shards 1, 2 and 4 against the
   port's batch_decode and the JAX batch_decode;
 - the flat sweep over the six .dcs94 assets x 3 (8,331 frames: not a
-  multiple of 8) against the port's FlatPipeline(plain=True) and the JAX
+  multiple of 8) against the port's FlatPipeline on the CPU and the JAX
   run_flat; a 3-shard uneven split and a mesh longer than the frame axis;
 - the halo, with teeth: on that input, a flat shard boundary falls where a
   one-row halo and a zero-row one both give another PCM (and a frame shard
@@ -110,7 +110,7 @@ def flat():
     streams = [_read(p) for p in sorted(glob.glob(os.path.join(ASSETS,
                                                                "*.dcs94")))]
     arrays = tfs.FlatSweep(streams * 3).pack().compact_host_arrays()
-    single = tfs.FlatPipeline("cpu", plain=True)(
+    single = tfs.FlatPipeline("cpu")(
         **tfs.packed_to_device(arrays, "cpu"))
     want = jfs.run_flat(jfs.FlatSweep(streams * 3).pack())
     return arrays, single, want

@@ -235,8 +235,7 @@ def test_a_bank_under_64ki_rows_keeps_the_u16_wire_bytes():
     rs.check()
     S, T, C = 4, 300, 6
     events = rom94_batch(S, T, C)
-    with romplay.SessionServer(rs, S, T, n_ch=C, device="cpu",
-                               plain=True) as srv:
+    with romplay.SessionServer(rs, S, T, n_ch=C, device="cpu") as srv:
         assert srv.bank.total_rows() == 62641 and not srv.wide
         wire, E = srv.prepare(events)
         table = (srv._addr_tab, srv._off_tab)
@@ -309,7 +308,7 @@ def test_session_decoder_over_70000_rows_equals_the_reference():
     sid = torch.arange(2, dtype=torch.int32).repeat_interleave(F // 2)
     bank = types.SimpleNamespace(scaled=scaled, device=torch.device("cpu"),
                                  family93=False)
-    dec = pl.session_decoder(bank, "cpu", plain=True)
+    dec = pl.session_decoder(bank, "cpu")
     got = dec(rows, mix, vol, sid)
     want = codec.pcm94(scaled, rows, mix, vol, sid, "cpu")
     assert (rows >= 1 << 16).sum() > F * C // 3
@@ -333,8 +332,7 @@ def test_a_full_title_session_of_last_tracks_equals_the_reference(
     events = {0: [0x55, 0xAA, 0x70, 0x70 ^ 0xFF]}
     for v, track in enumerate(last):
         events.setdefault(3 * v, []).extend([track >> 8, track & 0xFF])
-    with romplay.SessionServer(rs, 1, T, n_ch=C, bank=bank, device="cpu",
-                               plain=True) as srv:
+    with romplay.SessionServer(rs, 1, T, n_ch=C, bank=bank, device="cpu") as srv:
         assert bank.total_rows() >= 1 << 16 and srv.wide
         wire, E = srv.prepare([events])
         rows, mix, vol = romplay.segments94_plain(

@@ -518,7 +518,7 @@ def test_session_server_reduce_fn(roms, bank):
             reduce_fn=lambda w: (w & 0xFF).sum(1, dtype=torch.int64)) as srv:
         red = srv.serve_one(batch)
     with trp.SessionServer(rs, n_sessions=S, n_frames=T, bank=bank,
-                           device="cpu", plain=True) as srv:
+                           device="cpu") as srv:
         pcm = srv.serve_one(batch)
     assert red.shape == (S,)
     assert np.array_equal(red, np.sum(pcm.astype(np.int64) & 0xFF, axis=1))
